@@ -27,12 +27,15 @@
 // is stable, it costs M^3 multiply-adds (Newton-Schulz: ~28 M^3 for its 14
 // iterations), and its cost does not depend on cond(S).
 //
-// Bound on the H100: fp32 operations.  At N = 640, M = 192: 2 M^3 (a) +
-// 2 M^2 N (b) + 4 N^2 M (c) ~ 0.38 GFLOP, ~5.6 us at 67 TFLOP/s; traffic
-// is ~3.9 MB (~1.2 us).  (a) runs on one SM and is latency bound by its M
-// block-wide barrier steps; (b) and (c) use 64x64 tiles with 4x4 register
-// micro-tiles.  (d) needs its own launch: it reads P' rows 3:7 that (c)
-// writes from every block.
+// Bound on the H100: fp32 operations.  With Mu used rows the update needs
+// 2 Mu^3 (the inverse) + 2 Mu^2 N (W) + 2 Mu N^2 (D, once: D^T is the
+// same numbers) + 2 Mu N (dx); at N = 640 with all M = 192 rows used that
+// is ~0.22 GFLOP, ~3.3 us at 67 TFLOP/s, and the traffic is ~3.9 MB
+// (~1.2 us).  (c) computes D and D^T as two products, twice the downdate's
+// need, to keep P' exactly symmetric.  (a) runs on one SM and is latency
+// bound by its Mu block-wide barrier steps; (b) and (c) use 64x64 tiles
+// with 4x4 register micro-tiles.  (d) needs its own launch: it reads P'
+// rows 3:7 that (c) writes from every block.
 //
 // No shape cap: S lives in shared memory when M^2 + 2M floats fit the
 // block's opt-in limit (M <= 237 on the H100) and in the Sinv buffer in

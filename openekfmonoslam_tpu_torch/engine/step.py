@@ -31,6 +31,7 @@ from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import SlamState, make_initial_state
 
 _NEXT_SLICE = "vision front end: next slice"
+PHASE_PREFIX = "step_injected."
 
 
 class StepRecord(NamedTuple):
@@ -65,6 +66,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def _phase(name: str) -> torch.profiler.record_function:
+    """A profiler range around one phase of ``step_injected``; it records
+    nothing unless ``torch.profiler`` is on (tools/profile_torch_replay.py
+    and chip_smoke.py read the ranges by their ``PHASE_PREFIX``)."""
+    return torch.profiler.record_function(PHASE_PREFIX + name)
+
+
 class SlamRuntime:
     """Static per-run context: config scalars, camera, device, dtype."""
 
@@ -85,16 +93,6 @@ class SlamRuntime:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.hp_layout = config.hp_layout
-        # set to a list to record a CUDA event after each phase of
-        # step_injected: (phase name, event) pairs, for per-phase device
-        # times (chip_smoke.py); None records nothing
-        self.phase_marks: list | None = None
-
-    def _mark(self, name: str) -> None:
-        if self.phase_marks is not None:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.phase_marks.append((name, event))
 
     def make_initial_state(self) -> SlamState:
         return make_initial_state(self.config, self.dtype, self.device)
@@ -124,52 +122,51 @@ class SlamRuntime:
         z = self._tensor(z, self.dtype)
         matched = self._tensor(matched, torch.bool)
 
-        self._mark("start")
-        state = state._replace(frame=state.frame + 1)
-        state = pred_mod.predict(state, cfg)
-        self._mark("predict")
-        pred = meas_mod.predict_measurements(state, cam,
-                                             hp_layout=self.hp_layout)
-        matched = matched & pred.visible
-        self._mark("measure")
-
-        res = ransac_mod.ransac(
-            state, pred, z, matched, cam,
-            ekf.ransac_threshold_predict_distance,
-            ekf.ransac_all_inliers_probability, pixel_error,
-            cfg.max_hypotheses)
-        self._mark("ransac")
-        state = upd_mod.update(state, pred, z, res.inliers, pixel_error)
-        self._mark("update_li")
-        pred2 = meas_mod.predict_measurements(state, cam,
-                                              hp_layout=self.hp_layout)
-        rescued = ransac_mod.rescue_outliers(
-            pred2, z, res.outliers, ekf.ransac_chi2_threshold)
-        self._mark("rescue")
-        state = upd_mod.update(state, pred2, z, rescued, pixel_error)
-        inliers_all = res.inliers | rescued
-        self._mark("update_hi")
+        with _phase("predict"):
+            state = state._replace(frame=state.frame + 1)
+            state = pred_mod.predict(state, cfg)
+        with _phase("measure"):
+            pred = meas_mod.predict_measurements(state, cam,
+                                                 hp_layout=self.hp_layout)
+            matched = matched & pred.visible
+        with _phase("ransac"):
+            res = ransac_mod.ransac(
+                state, pred, z, matched, cam,
+                ekf.ransac_threshold_predict_distance,
+                ekf.ransac_all_inliers_probability, pixel_error,
+                cfg.max_hypotheses)
+        with _phase("update_li"):
+            state = upd_mod.update(state, pred, z, res.inliers, pixel_error)
+        with _phase("rescue"):
+            pred2 = meas_mod.predict_measurements(state, cam,
+                                                  hp_layout=self.hp_layout)
+            rescued = ransac_mod.rescue_outliers(
+                pred2, z, res.outliers, ekf.ransac_chi2_threshold)
+        with _phase("update_hi"):
+            state = upd_mod.update(state, pred2, z, rescued, pixel_error)
+            inliers_all = res.inliers | rescued
 
         # map management mirrors the live pipeline (EKF.cpp:567-612):
         # counters every frame; cull/convert under the frequency gate
-        state = mapman.update_counters(state, pred.visible, inliers_all,
-                                       state.descriptors)
-        freq = ekf.map_management_frequency
-        do_mm = (state.frame % max(freq, 1) == 0) & (freq > 0)
-        needed = ekf.min_matches_per_image - torch.sum(inliers_all,
-                                                       dtype=torch.int32)
+        with _phase("mapman"):
+            state = mapman.update_counters(state, pred.visible, inliers_all,
+                                           state.descriptors)
+            freq = ekf.map_management_frequency
+            do_mm = (state.frame % max(freq, 1) == 0) & (freq > 0)
+            needed = ekf.min_matches_per_image - torch.sum(
+                inliers_all, dtype=torch.int32)
 
-        bad = mapman.bad_feature_mask(state,
-                                      ekf.good_feature_matching_percent)
-        state = mapman.remove_features(state, bad & do_mm)
-        pressure = mapman.map_pressure(
-            state, needed, ekf.always_remove_unseen_map_features,
-            ekf.max_map_features_count, ekf.max_map_size)
-        unseen = state.active & ~pred.visible
-        state = mapman.remove_features(state, unseen & pressure & do_mm)
-        state = mapman.convert_one_to_xyz(
-            state, ekf.inverse_depth_linearity_index_threshold, enable=do_mm)
-        self._mark("mapman")
+            bad = mapman.bad_feature_mask(state,
+                                          ekf.good_feature_matching_percent)
+            state = mapman.remove_features(state, bad & do_mm)
+            pressure = mapman.map_pressure(
+                state, needed, ekf.always_remove_unseen_map_features,
+                ekf.max_map_features_count, ekf.max_map_size)
+            unseen = state.active & ~pred.visible
+            state = mapman.remove_features(state, unseen & pressure & do_mm)
+            state = mapman.convert_one_to_xyz(
+                state, ekf.inverse_depth_linearity_index_threshold,
+                enable=do_mm)
 
         F = state.n_features
         C = cfg.max_features
@@ -178,33 +175,32 @@ class SlamRuntime:
         rec_ok = torch.zeros((C,), dtype=torch.bool, device=dev)
         rec_slot = torch.full((C,), F, dtype=torch.int32, device=dev)
         if new_uv is not None:
-            new_uv = self._tensor(new_uv, self.dtype)
-            n_new = new_uv.shape[0]
-            if new_desc is None:
-                new_desc = torch.zeros(
-                    (n_new,) + tuple(state.descriptors.shape[1:]),
-                    dtype=state.descriptors.dtype, device=dev)
-            else:
-                new_desc = self._tensor(new_desc)
-            # the live path adds only when map management ran and the
-            # inlier count fell short (EKF.cpp:597-611)
-            new_valid = self._tensor(new_valid, torch.bool) & do_mm & (
-                needed > 0)
-            if new_slot is not None:
-                new_slot = self._tensor(new_slot, torch.int32)
-                new_ok = new_valid
-                state = feat_mod.add_features_at(
-                    state, cam, cfg, new_uv, new_desc, new_slot, new_valid)
-            else:
-                new_slot, new_ok = feat_mod.assign_slots(state.active,
-                                                         new_valid)
-                state = feat_mod.add_features(
-                    state, cam, cfg, new_uv, new_desc, new_valid)
-            rec_uv[:n_new] = new_uv
-            rec_ok[:n_new] = new_ok
-            rec_slot[:n_new] = new_slot
-
-        self._mark("add")
+            with _phase("add"):
+                new_uv = self._tensor(new_uv, self.dtype)
+                n_new = new_uv.shape[0]
+                if new_desc is None:
+                    new_desc = torch.zeros(
+                        (n_new,) + tuple(state.descriptors.shape[1:]),
+                        dtype=state.descriptors.dtype, device=dev)
+                else:
+                    new_desc = self._tensor(new_desc)
+                # the live path adds only when map management ran and the
+                # inlier count fell short (EKF.cpp:597-611)
+                new_valid = self._tensor(new_valid, torch.bool) & do_mm & (
+                    needed > 0)
+                if new_slot is not None:
+                    new_slot = self._tensor(new_slot, torch.int32)
+                    new_ok = new_valid
+                    state = feat_mod.add_features_at(
+                        state, cam, cfg, new_uv, new_desc, new_slot, new_valid)
+                else:
+                    new_slot, new_ok = feat_mod.assign_slots(state.active,
+                                                             new_valid)
+                    state = feat_mod.add_features(
+                        state, cam, cfg, new_uv, new_desc, new_valid)
+                rec_uv[:n_new] = new_uv
+                rec_ok[:n_new] = new_ok
+                rec_slot[:n_new] = new_slot
 
         def count(mask):
             return torch.sum(mask, dtype=torch.int32)

@@ -9,13 +9,16 @@ plain chain's downdate and symmetrize; P' comes out exactly symmetric),
 then the quaternion renormalization and its Jacobian through P rows and
 columns 3:7, all gated by applied = any(use) on the device.
 
-Bound on the H100: fp32 operations, ~0.38 GFLOP per update at N = 640,
-2F = 192 (~5.6 us at 67 TFLOP/s); the covariance traffic is ~3.9 MB
-(~1.2 us).  Design (csrc/update.cu): a one-block Gauss-Jordan inverse of S
-in shared memory (M^2 multiply-adds per used row, independent of
-cond(S); the steps of unused rows are identities and skipped), two tiled
-fp32 GEMM kernels with 4x4 register tiles for W and the symmetric
-downdate, and a one-block finalize -- four launches on one stream, no
+Bound on the H100: fp32 operations, 2 Mu^3 + 2 Mu^2 N + 2 Mu N^2 + 2 Mu N
+for Mu used rows of 2F (the downdate counted once), ~0.22 GFLOP at N = 640
+with all 2F = 192 rows used (~3.3 us at 67 TFLOP/s); the covariance
+traffic is ~3.9 MB (~1.2 us).  Design (csrc/update.cu): a one-block
+Gauss-Jordan inverse of S in shared memory (M^2 multiply-adds per used
+row, independent of cond(S); the steps of unused rows are identities and
+skipped), two tiled fp32 GEMM kernels with 4x4 register tiles for W and
+the symmetric downdate (D and D^T as two products, twice the downdate's
+need, so that P' is exactly symmetric), and a one-block finalize -- four
+launches on one stream, no
 host synchronisation.  All products are true fp32 (no TF32, no bf16
 split).  No N or 2F cap: S falls back from shared to device memory when
 it does not fit.  Outputs are new tensors; P is never written.

@@ -26,16 +26,33 @@ Phases, each of which passes or raises (the script then exits non-zero):
               under PyTorch's sync debug mode, one takes each phase's
               host and device ms from torch.profiler's ranges;
   4. replay   the same log through the port on the CPU in float64 (the
-              plain path), held against the card's float32 trajectory.
+              plain path), held against the card's float32 trajectory;
+  5. live     the live entry points on 640x480 synthetic frames (a window
+              sliding over a blob texture) under the s3 profile (STAR,
+              BRIEF-256, descriptor matching with subpixel refinement):
+              run_sequence_on_device (init_step, then step per frame) with
+              every launch counter set to 0 just before and read just
+              after, which gives frames/s; then a run under sync debug
+              mode (host syncs per frame, at most 1), one under
+              torch.profiler (host and device ms per step.<phase>), STAR
+              and BRIEF against their plain versions on frame T/2's own
+              image, and the live injection log (eval/replay.py
+              record_live_log) replayed through step_injected on the CPU
+              in float64, held against the card's trajectory.
 
-The line before the last is one JSON object with a row per kernel; the
-last line is {"ok": true, "device": {...}}.  Details go to
+Phase 2 also checks STAR and BRIEF against their float32 plain versions
+(bit for bit) on a textured 640x480 frame and on an odd 483x645 one.
+
+The line before the last is one JSON object with a row per kernel (its
+launches from the live path, phase 5, which runs all six); the last line
+is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -48,18 +65,23 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from openekfmonoslam_tpu_torch.config import SlamConfig
+from openekfmonoslam_tpu_torch.config import DetectorConfig, SlamConfig
 from openekfmonoslam_tpu_torch.core import camera as cam_mod
 from openekfmonoslam_tpu_torch.core import quaternion as quat
-from openekfmonoslam_tpu_torch.engine.step import PHASE_PREFIX, SlamRuntime
+from openekfmonoslam_tpu_torch.engine import scan_runner
+from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
+                                                   PHASE_PREFIX, SlamRuntime)
 from openekfmonoslam_tpu_torch.eval import replay
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
 from openekfmonoslam_tpu_torch.filter import measure as meas_mod
 from openekfmonoslam_tpu_torch.filter import predict as pred_mod
 from openekfmonoslam_tpu_torch.filter.state import dim_active_mask
-from openekfmonoslam_tpu_torch.ops import (cuda_lib, init_kernel,
-                                           measure_kernel, predict_kernel,
-                                           sinv, update_kernel)
+from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
+from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
+                                           init_kernel, measure_kernel,
+                                           predict_kernel, sinv, star_kernel,
+                                           update_kernel)
+from openekfmonoslam_tpu_torch.vision import brief, star
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -82,9 +104,18 @@ KERNELS = {
     "init": dict(module=init_kernel,
                  source="openekfmonoslam_tpu_torch/csrc/init.cu",
                  replaces="openekfmonoslam_tpu/ops/init_kernel.py:48"),
+    # _resp_kernel (:45) and _score_kernel (:69)
+    "star": dict(module=star_kernel,
+                 source="openekfmonoslam_tpu_torch/csrc/star.cu",
+                 replaces="openekfmonoslam_tpu/ops/star_kernel.py:45"),
+    "brief": dict(module=brief_kernel,
+                  source="openekfmonoslam_tpu_torch/csrc/brief.cu",
+                  replaces="openekfmonoslam_tpu/ops/brief_kernel.py:43"),
 }
 
-T_FRAMES = 220          # frames of the path (>= 200)
+T_FRAMES = 220          # frames of the replay path (>= 200)
+T_LIVE = 201            # frames of the live path: init_step + 200 steps
+LIVE_HW = (480, 640)    # the s3 frame size
 GRAPH_REPS = 200        # kernel launches per timed CUDA graph
 EAGER_REPS = 200        # eager kernel launches per timing
 PLAIN_REPS = 50         # plain-version calls per timing
@@ -103,6 +134,12 @@ TOL = {
 # frames whose inlier and visibility masks must be identical
 REPLAY_TOL = 1e-5
 REPLAY_MASKS_SAME = 0.99
+# the live log replayed in float64 against the card's live trajectory:
+# predicted about 1e-6 m, as on the replay path; the bound allows one
+# borderline RANSAC decision to flip
+LIVE_REPLAY_TOL = 1e-4
+LIVE_MASKS_SAME = 0.95
+LIVE_SYNCS_PER_FRAME = 1.0    # the (add?, needed) read of phase_mapman
 
 
 class PhaseError(RuntimeError):
@@ -139,20 +176,39 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def phase_times(prof, frames: int) -> dict:
+def phase_times(prof, frames: int, prefix: str = PHASE_PREFIX) -> dict:
     """{phase: {"host_ms", "device_ms"}} a frame from the profiler ranges
-    that step_injected opens around its phases: the host's wall time inside
-    each range, and the device time of the PyTorch kernels launched in it.
-    The hand-written kernels are launched through ctypes, outside any
-    PyTorch op, and the profiler does not count them in a range: their
-    times are the kernel table's."""
+    that step_injected (or step, with LIVE_PHASE_PREFIX) opens around its
+    phases: the host's wall time inside each range, and the device time of
+    the PyTorch kernels launched in it.  The hand-written kernels are
+    launched through ctypes, outside any PyTorch op, and the profiler does
+    not count them in a range: their times are the kernel table's."""
     out = {}
     for e in prof.key_averages():
-        if (e.key.startswith(PHASE_PREFIX)
+        if (e.key.startswith(prefix)
                 and e.device_type == torch.autograd.DeviceType.CPU):
-            out[e.key[len(PHASE_PREFIX):]] = {
+            out[e.key[len(prefix):]] = {
                 "host_ms": e.cpu_time_total / 1e3 / frames,
                 "device_ms": e.device_time_total / 1e3 / frames}
+    return out
+
+
+# device kernels of the hand-written STAR and BRIEF functions, by name
+LIVE_KERNEL_NAMES = ("star_resp", "star_score", "star_nms", "brief_planes")
+
+
+def kernel_device_us(prof, frames: int) -> dict:
+    """{kernel: {"us_per_frame", "calls_per_frame"}} for the device kernels
+    named in LIVE_KERNEL_NAMES, from the profiler's device activity (it
+    sees ctypes launches, which its op ranges do not)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in LIVE_KERNEL_NAMES:
+            if e.key.startswith(name + "(") or e.key == name:
+                out[name] = {"us_per_frame": e.device_time_total / frames,
+                             "calls_per_frame": e.count / frames}
     return out
 
 
@@ -196,6 +252,29 @@ def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
     b.synchronize()
     del graph
     return a.elapsed_time(b) / reps
+
+
+def count_syncs(fn) -> tuple[collections.Counter, float]:
+    """Run ``fn`` under PyTorch's sync debug mode; the host syncs by the
+    source line that caused them, and the seconds it took."""
+    sites: collections.Counter = collections.Counter()
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if "synchronizing CUDA operation" in str(message):
+            sites[f"{Path(filename).name}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites, seconds
 
 
 # ----------------------------------------------------------------- phase 1
@@ -291,9 +370,55 @@ def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
     return e
 
 
-def phase_kernels(cfg: SlamConfig, camera, dev=torch.device("cuda", 0)
-                  ) -> dict:
-    """Each kernel against its float64 plain version, then its times."""
+def blob_texture(rng, h: int, w: int) -> np.ndarray:
+    """A dark noisy background with bright square blobs of 2-12 px: many
+    STAR responses above the s3 threshold of 30."""
+    img = rng.integers(0, 30, (h, w))
+    for _ in range(h * w // 80):
+        y, x, r = rng.integers(0, h), rng.integers(0, w), rng.integers(1, 7)
+        img[max(y - r, 0):y + r, max(x - r, 0):x + r] = rng.integers(60, 256)
+    return img.astype(np.uint8)
+
+
+def star_ops(settings) -> int:
+    """Operations a pixel of the STAR function: per scale two box sums
+    (3 adds, 1 multiply each), the difference, |.| and the running max;
+    then the gradients (4), the three products, three separable 5x5 box
+    sums (30 adds), det, trace and the gate (8), the threshold (2), and a
+    separable (2r+1)^2 max with its test (4r + 3)."""
+    n_sizes = len(star.star_sizes(settings.max_size))
+    return 11 * n_sizes + 4 + 3 + 30 + 8 + 2 + 4 * settings.nms_radius + 3
+
+
+def check_star_brief(failures, tag: str, gray, frontend) -> dict:
+    """STAR and BRIEF against their float32 plain versions on the card, on
+    the same integral image and the same smoothed image: bit for bit."""
+    h, w = gray.shape
+    s = frontend.star
+    ii = star._integral(gray, star.integral_pad(s.max_size))
+    raw, nms = star_kernel.star_cuda(ii, h, w, s)
+    raw_p, nms_p = star_kernel.star_plain(ii, h, w, s)
+    e_star = max(max_abs(raw, raw_p), max_abs(nms, nms_p))
+    peaks = int((nms_p > 0).sum())
+    check(failures, torch.equal(raw, raw_p) and torch.equal(nms, nms_p),
+          f"star[{tag} {h}x{w}] raw and nms identical to the plain version "
+          f"({peaks} peaks, max |diff| {e_star:.3e})")
+    smoothed = brief.smooth(gray, frontend.config.descriptor.blur_sigma)
+    planes = brief_kernel.dense_planes_cuda(smoothed, frontend.pattern)
+    planes_p = brief_kernel.dense_planes_plain(smoothed, frontend.pattern)
+    bits = sum(int(brief.popcount32(a ^ b).sum())
+               for a, b in zip(planes, planes_p))
+    check(failures, bits == 0 and len(planes) == len(planes_p),
+          f"brief[{tag} {h}x{w}] {len(planes)} planes of "
+          f"{tuple(planes[0].shape)} bit-identical ({bits} bits differ)")
+    return dict(ii=ii, smoothed=smoothed, star_err=e_star,
+                brief_bits=bits, peaks=peaks)
+
+
+def phase_kernels(cfg: SlamConfig, camera, frontend,
+                  dev=torch.device("cuda", 0)) -> dict:
+    """Each kernel against its plain version (float64 for the filter
+    kernels, float32 bit for bit for STAR and BRIEF), then its times."""
     print("== phase 2: kernels", flush=True)
     N, F, C = cfg.padded_state_dim, cfg.max_features, cfg.max_features
     rng = np.random.default_rng(0)
@@ -393,6 +518,32 @@ def phase_kernels(cfg: SlamConfig, camera, dev=torch.device("cuda", 0)
         bytes=4 * (7 + (2 + 6 + 42 + 18) * C), flops=250 * C,
         kernel=lambda: init_kernel.init_chain(camera, c7, cuv, rho0),
         plain=lambda: init_kernel.init_plain(camera, c7, cuv, rho0))
+
+    # ---- star, brief: the main path's 640x480 frame, then an odd shape
+    h, w = LIVE_HW
+    gray = torch.tensor(blob_texture(rng, h, w), device=dev)
+    main = check_star_brief(failures, "main", gray, frontend)
+    odd = check_star_brief(failures, "odd", torch.tensor(
+        blob_texture(rng, 483, 645), device=dev), frontend)
+    check(failures, main["peaks"] >= 1000,
+          f"the textured frame has {main['peaks']} STAR peaks (>= 1000)")
+    s_set, pattern = frontend.star, frontend.pattern
+    ii, smoothed = main["ii"], main["smoothed"]
+    half, n_bits = pattern.half, pattern.pairs.shape[0]
+    ih, iw = h - 2 * half, w - 2 * half
+    rows["star"] = dict(
+        max_abs_err=max(main["star_err"], odd["star_err"]),
+        bytes=4 * (ii.numel() + 2 * h * w), flops=star_ops(s_set) * h * w,
+        kernel=lambda: star_kernel.star_from_integral(ii, h, w, s_set),
+        plain=lambda: star_kernel.star_plain(ii, h, w, s_set))
+    # max_abs_err: differing bits (0 = bit-identical); the operations are
+    # one compare and one bit insert per bit
+    rows["brief"] = dict(
+        max_abs_err=float(main["brief_bits"] + odd["brief_bits"]),
+        bytes=4 * (h * w + (n_bits // 32) * ih * iw),
+        flops=2 * n_bits * ih * iw,
+        kernel=lambda: brief_kernel.dense_planes(smoothed, pattern),
+        plain=lambda: brief_kernel.dense_planes_plain(smoothed, pattern))
     end_phase("kernels (checks)", failures)
 
     for name, row in rows.items():
@@ -586,21 +737,8 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
 
     # the same replay once more under PyTorch's sync debug mode, counting
     # the host syncs by the line that caused them
-    sync_sites: collections.Counter = collections.Counter()
-
-    def on_warning(message, category, filename, lineno, *rest):
-        if "synchronizing CUDA operation" in str(message):
-            sync_sites[f"{Path(filename).name}:{lineno}"] += 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        t0 = time.perf_counter()
-        replay.run_uploaded(runtime, ulog)
-        torch.cuda.synchronize()
-        elapsed2 = time.perf_counter() - t0
-        torch.cuda.set_sync_debug_mode("default")
+    sync_sites, elapsed2 = count_syncs(
+        lambda: replay.run_uploaded(runtime, ulog))
     syncs = sum(sync_sites.values())
     print(f"  second replay (sync debug mode): {T_FRAMES / elapsed2:.2f} "
           f"frames/s, {syncs} host syncs ({syncs / T_FRAMES:.3f} per "
@@ -690,6 +828,160 @@ def phase_replay(path: dict, failures: list) -> dict:
                 dev_per_frame=dev.tolist(), sigma_per_frame=sigma.tolist())
 
 
+# ----------------------------------------------------------------- phase 5
+
+def live_frames(T: int, hw=LIVE_HW, seed: int = 5) -> np.ndarray:
+    """(T, H, W) uint8: a window sliding 2 px a frame over a blob texture
+    (io/sources.py SlidingWindowSource), an image-space pan."""
+    h, w = hw
+    still = blob_texture(np.random.default_rng(seed), h, w + 2 * T)
+    return np.stack(list(SlidingWindowSource(still, (h, w), step_xy=(2, 0),
+                                             n_frames=T)))
+
+
+def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
+    print("== phase 5: live path", flush=True)
+    runtime = SlamRuntime(cfg)            # the card: cuda:0
+    frames = live_frames(T)
+    S = T - 1
+    print(f"  SlamConfig(detector=STAR): {cfg.detector.kind} max size "
+          f"{cfg.detector.star_max_size}, response "
+          f"{cfg.detector.star_response_threshold}, line "
+          f"{cfg.detector.star_line_threshold}, NMS radius "
+          f"{cfg.detector.nonmax_radius}; {cfg.descriptor.kind}-"
+          f"{cfg.descriptor.n_bits} patch {cfg.descriptor.patch_size}; "
+          f"F = {cfg.max_features}, {cfg.dtype}, {frames.shape[2]}x"
+          f"{frames.shape[1]}, {T} frames", flush=True)
+
+    # warm-up off the clock: first calls, allocations, add frames
+    scan_runner.run_sequence_on_device(runtime, frames[:21])
+    torch.cuda.synchronize()
+
+    # the main path: every launch counter at 0 just before, read just after
+    for spec in KERNELS.values():
+        spec["module"].LAUNCHES.reset()
+    t0 = time.perf_counter()
+    state, recs = scan_runner.run_sequence_on_device(runtime, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: spec["module"].LAUNCHES.count
+                for name, spec in KERNELS.items()}
+    # the same run again, for the host's run-to-run spread
+    t0 = time.perf_counter()
+    scan_runner.run_sequence_on_device(runtime, frames)
+    torch.cuda.synchronize()
+    elapsed_again = time.perf_counter() - t0
+    fps = T / elapsed
+    print(f"  main path: run_sequence_on_device over {T} frames in "
+          f"{elapsed:.4f} s = {fps:.2f} frames/s (init_step, the upload "
+          f"and the records' copy back included); again: "
+          f"{T / elapsed_again:.2f} frames/s", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    check(failures, launches["star"] == T and launches["brief"] == T,
+          f"star and brief launched once a frame plus once for init_step "
+          f"({T})")
+    check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
+    check(failures, launches["update"] == 2 * S, f"update launches {2 * S}")
+    check(failures, 1 <= launches["init"] <= T,
+          f"init launched on init_step and on add frames only "
+          f"({launches['init']})")
+    check(failures, bool(torch.isfinite(state.x).all())
+          and bool(torch.isfinite(state.P).all()), "final x and P finite")
+    matched = recs.total_matches.astype(np.int64)
+    inl = (recs.li_inliers + recs.hi_inliers).astype(np.int64)
+    healthy = float(np.mean(inl >= 0.5 * matched))
+    check(failures, healthy >= 0.9 and matched.mean() >= 20,
+          f"tracking healthy on {healthy:.3f} of frames (>= 0.9): mean "
+          f"matched {matched.mean():.1f} (>= 20), mean inliers "
+          f"{inl.mean():.1f}, mean active {recs.n_active.mean():.1f}, "
+          f"{int(recs.new_ok.sum())} features added")
+
+    # host syncs per frame, on frames already on the card
+    gpu_frames = runtime._tensor(frames)
+    st0 = runtime.init_step(runtime.make_initial_state(), gpu_frames[0])
+    torch.cuda.synchronize()
+    sites, sync_s = count_syncs(
+        lambda: scan_runner.scan_frames(runtime, st0, gpu_frames[1:]))
+    syncs = sum(sites.values())
+    print(f"  sync debug run: {S / sync_s:.2f} steps/s, {syncs} host syncs "
+          f"({syncs / S:.3f} per frame): {dict(sites)}", flush=True)
+    check(failures, syncs / S <= LIVE_SYNCS_PER_FRAME,
+          f"host syncs per frame {syncs / S:.3f} <= {LIVE_SYNCS_PER_FRAME}")
+
+    # per-phase host and device ms under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan_runner.scan_frames(runtime, st0, gpu_frames[1:])
+        torch.cuda.synchronize()
+    phase_ms = phase_times(prof, S, LIVE_PHASE_PREFIX)
+    print("  per-phase ms/frame under the profiler (host, device of "
+          "PyTorch's kernels): "
+          + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+                      for k, v in phase_ms.items()), flush=True)
+    vision_us = kernel_device_us(prof, S)
+    print("  STAR and BRIEF device kernels under the profiler (us a frame, "
+          "calls a frame): "
+          + ", ".join(f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
+                      for k, v in vision_us.items()), flush=True)
+
+    # STAR and BRIEF on frame T/2's own image
+    mid = check_star_brief(failures, f"frame {T // 2}", gpu_frames[T // 2],
+                           runtime.frontend)
+
+    # the live injection log, replayed on the CPU in float64
+    log = replay.record_live_log(runtime, gpu_frames)
+    card = log["records"]
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(rt64, log)
+    cpu_s = time.perf_counter() - t0
+    ref = np.stack([r.x_cam.numpy() for r in recs64])
+    dev = np.linalg.norm(card.x_cam[:, 0:3].astype(np.float64)
+                         - ref[:, 0:3], axis=1)
+    same_inl = np.mean([np.array_equal(a, b.inliers.numpy())
+                        for a, b in zip(card.inliers, recs64)])
+    same_vis = np.mean([np.array_equal(a, b.visible.numpy())
+                        for a, b in zip(card.visible, recs64)])
+    same_rec = float(np.abs(card.x_cam - recs.x_cam).max())
+    worst = int(np.argmax(dev))
+    print(f"  live log: {len(log['init'])} bootstrap features, "
+          f"{sum(len(f['new']) for f in log['frames'])} additions; its "
+          f"run vs the main run: max |x_cam| difference {same_rec:.3e}",
+          flush=True)
+    print(f"  float64 CPU replay of the live log {cpu_s:.1f} s: "
+          f"camera-position deviation max {dev.max():.3e} (frame "
+          f"{worst + 1}), mean {dev.mean():.3e}, final {dev[-1]:.3e}; "
+          f"inlier masks identical on {same_inl:.3f} of frames, "
+          f"visibility on {same_vis:.3f}", flush=True)
+    check(failures, bool((dev <= LIVE_REPLAY_TOL).all()),
+          f"live replay deviation <= {LIVE_REPLAY_TOL} on every frame "
+          f"(worst {dev[worst]:.3e})")
+    check(failures, same_inl >= LIVE_MASKS_SAME
+          and same_vis >= LIVE_MASKS_SAME,
+          f"live replay masks identical on >= {LIVE_MASKS_SAME} of frames")
+    return dict(launches=launches, fps=fps, elapsed_s=elapsed,
+                fps_again=T / elapsed_again,
+                syncs=syncs, syncs_per_frame=syncs / S,
+                sync_sites=dict(sites), fps_sync_debug=S / sync_s,
+                phase_ms=phase_ms, vision_kernels_us=vision_us,
+                healthy=healthy,
+                mean_matched=float(matched.mean()),
+                mean_inliers=float(inl.mean()),
+                added=int(recs.new_ok.sum()),
+                mid_frame=dict(star_err=mid["star_err"],
+                               brief_bits=mid["brief_bits"],
+                               peaks=mid["peaks"]),
+                replay=dict(cpu_s=cpu_s, dev_max=float(dev.max()),
+                            dev_mean=float(dev.mean()),
+                            dev_final=float(dev[-1]),
+                            inliers_same=float(same_inl),
+                            visible_same=float(same_vis),
+                            log_run_vs_main=same_rec,
+                            dev_per_frame=dev.tolist()))
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -705,10 +997,12 @@ def main() -> int:
     report["build"] = phase_build()
 
     cfg = SlamConfig()
+    # the s3 profile: SlamConfig() alone is the FAST profile
+    live_cfg = SlamConfig(detector=DetectorConfig(kind="STAR"))
     camera = cam_mod.Camera.from_calibration(cfg.camera)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = phase_kernels(cfg, camera)
+    rows = phase_kernels(cfg, camera, SlamRuntime(live_cfg).frontend)
 
     failures: list = []
     path = phase_path(cfg, failures)
@@ -716,6 +1010,9 @@ def main() -> int:
     failures = []
     rep = phase_replay(path, failures)
     end_phase("replay", failures)
+    failures = []
+    live = phase_live(live_cfg, failures)
+    end_phase("live", failures)
 
     T = T_FRAMES
     kernels = []
@@ -724,12 +1021,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
-            "launches": path["launches"][name],
+            "launches": live["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "eager_ms": row["eager_ms"],
-            "launches_per_frame": path["launches"][name] / T})
+            "launches_per_frame": live["launches"][name] / T_LIVE,
+            "launches_replay_path": path["launches"][name]})
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
@@ -738,11 +1036,14 @@ def main() -> int:
                       "record_s",
                       "healthy", "mean_matched", "mean_inliers",
                       "replay_vs_recording", "launches")},
-                  frames=T, syncs_per_frame=path["syncs"] / T, replay=rep)
+                  frames=T, syncs_per_frame=path["syncs"] / T, replay=rep,
+                  live={k: v for k, v in live.items()})
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(f"frames/s {path['fps']:.2f} over {T} frames, host syncs/frame "
-          f"{path['syncs'] / T:.3f}", flush=True)
+    print(f"replay path: frames/s {path['fps']:.2f} over {T} frames, host "
+          f"syncs/frame {path['syncs'] / T:.3f}", flush=True)
+    print(f"live path: frames/s {live['fps']:.2f} over {T_LIVE} frames, "
+          f"host syncs/frame {live['syncs_per_frame']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

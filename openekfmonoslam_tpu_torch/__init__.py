@@ -11,8 +11,13 @@ The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``openekfmonoslam_tpu``.  Entry points run on the first CUDA device unless
 the caller passes ``device="cpu"``.
 
-Ported so far: the filter replay path (``SlamRuntime.step_injected``,
-``io.handmatching.replay``, ``eval.replay.replay_through_engine``).
+Ported so far:
+  * the live path: ``SlamRuntime.init_step`` and ``SlamRuntime.step`` with
+    the STAR detector and BRIEF descriptors (the s3 profile), and
+    ``engine.scan_runner`` (``scan_frames``, ``run_sequence_on_device``);
+    ``eval.replay.record_live_log`` records its injection log;
+  * the filter replay path: ``SlamRuntime.step_injected``,
+    ``io.handmatching.replay``, ``eval.replay.replay_through_engine``.
 """
 
 __version__ = "0.1.0"

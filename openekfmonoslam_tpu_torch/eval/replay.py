@@ -1,11 +1,11 @@
-"""Replay an injection log through the filter (port of eval/replay.py,
-``replay_through_engine`` only; recording a log needs the live front end,
-the next slice of the port).
+"""Record a live run's injection log and replay it through the filter
+(port of eval/replay.py).
 
 A log holds everything the vision front end fed the filter: the bootstrap
 detections ``log["init"]`` = [(uv, slot), ...] and per frame
-``{"z": (F, 2), "matched": (F,), "new": [(uv, slot), ...]}``.  The same
-log format is produced by the JAX package's ``record_live_log``.
+``{"z": (F, 2), "matched": (F,), "new": [(uv, slot), ...]}``.
+``record_live_log`` writes it from the live path; the JAX package's
+``record_live_log`` writes the same format.
 """
 
 from __future__ import annotations
@@ -15,8 +15,32 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from openekfmonoslam_tpu_torch.engine.scan_runner import scan_in_chunks
 from openekfmonoslam_tpu_torch.engine.step import SlamRuntime
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
+
+
+def record_live_log(runtime: SlamRuntime, frames, chunk: int = 32) -> dict:
+    """Run the live engine over ``frames`` (T, H, W) and return
+    {"init": [(uv, slot), ...], "frames": [{z, matched, new}, ...],
+    "trajectory": (T-1, 13), "records": StepRecord of numpy arrays}.
+    ``frames`` may be a uint8 tensor already on the runtime's device."""
+    state = runtime.make_initial_state()
+    state, uv0, ok0, slot0 = runtime.init_step_recorded(state, frames[0])
+    uv0, ok0, slot0 = (a.cpu().numpy() for a in (uv0, ok0, slot0))
+    log = {"init": [(uv0[i], int(slot0[i])) for i in range(len(ok0))
+                    if ok0[i]],
+           "frames": [], "trajectory": None}
+    _, recs = scan_in_chunks(runtime, state, frames[1:], chunk)
+    for t in range(recs.z.shape[0]):
+        new = [(recs.new_uv[t][c], int(recs.new_slot[t][c]))
+               for c in range(recs.new_ok.shape[1]) if recs.new_ok[t][c]]
+        log["frames"].append({"z": recs.z[t].astype(np.float64),
+                              "matched": recs.matched[t].copy(),
+                              "new": new})
+    log["trajectory"] = recs.x_cam.astype(np.float64)
+    log["records"] = recs
+    return log
 
 
 def _additions(entries, C: int):

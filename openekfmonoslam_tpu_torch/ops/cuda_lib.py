@@ -52,6 +52,22 @@ class CamParams(ctypes.Structure):
                    float(cam.pixels_x), float(cam.pixels_y))
 
 
+STAR_MAX_SIZES = 14
+
+
+class StarParams(ctypes.Structure):
+    """Mirror of ``struct StarParams`` in csrc/star.cu."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in (
+        "h", "w", "ii_w", "pad", "n_sizes", "nms_radius")]
+        + [("response_threshold", ctypes.c_float),
+           ("line_threshold", ctypes.c_float),
+           ("size", ctypes.c_int * STAR_MAX_SIZES),
+           ("fuse", ctypes.c_int * STAR_MAX_SIZES),
+           ("r_in", ctypes.c_float * STAR_MAX_SIZES),
+           ("r_out", ctypes.c_float * STAR_MAX_SIZES)])
+
+
 # C signatures of the exported launchers (csrc/*.cu); each returns a
 # cudaError_t, 0 on success.
 _SIGNATURES = {
@@ -61,6 +77,8 @@ _SIGNATURES = {
     "ekf_init": [_P, _P, _P, _P, _P, _I, _F, ctypes.POINTER(CamParams), _P],
     "ekf_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                    _P],
+    "ekf_star": [_P, ctypes.POINTER(StarParams), _P, _P, _P, _P],
+    "ekf_brief": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -186,14 +204,15 @@ def stream_of(t: torch.Tensor) -> int:
 
 def check_cuda_inputs(name: str, tensors: dict) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device,
-    float32 except the boolean masks (uint8 storage)."""
+    float32 except the boolean masks (uint8 storage) and int32 tables."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {devices}")
     for key, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {key} is not a CUDA tensor")
-        want = torch.bool if t.dtype == torch.bool else torch.float32
+        want = (t.dtype if t.dtype in (torch.bool, torch.int32)
+                else torch.float32)
         if t.dtype != want:
             raise ValueError(f"{name}: {key} must be float32 on the GPU, "
                              f"got {t.dtype}")

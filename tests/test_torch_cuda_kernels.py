@@ -1,7 +1,9 @@
-"""The four CUDA kernels against their float64 plain versions, on the card,
-at shapes the main path does not reach: ragged tiles, one slot, several
-blocks, and an S too large for shared memory (the update's device-memory
-inverse).  ``chip_smoke.py`` checks the main path's shapes.
+"""The CUDA kernels against their plain versions, on the card, at shapes
+the main path does not reach: ragged tiles, one slot, several blocks, an S
+too large for shared memory (the update's device-memory inverse), odd
+frame sizes and other STAR and BRIEF settings.  The filter kernels are
+held against float64; STAR and BRIEF must equal their float32 plain
+versions bit for bit.  ``chip_smoke.py`` checks the main path's shapes.
 
 These tests need a CUDA device and skip without one.  This module imports
 no JAX, so on a machine without it run them as
@@ -15,9 +17,10 @@ import torch
 
 from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
-from openekfmonoslam_tpu_torch.ops import (init_kernel, measure_kernel,
-                                           predict_kernel, sinv,
-                                           update_kernel)
+from openekfmonoslam_tpu_torch.ops import (brief_kernel, init_kernel,
+                                           measure_kernel, predict_kernel,
+                                           sinv, star_kernel, update_kernel)
+from openekfmonoslam_tpu_torch.vision import brief, star
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +148,40 @@ def test_wrappers_refuse_float64_cuda_tensors(dev):
     x = torch.zeros(20, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="float32"):
         predict_kernel.predict(P, x, 1.0, 1e-6, 1e-6)
+
+
+def _gray(rng, h, w, dev):
+    img = rng.integers(0, 30, (h, w))
+    for _ in range(h * w // 80):
+        y, x, r = rng.integers(0, h), rng.integers(0, w), rng.integers(1, 6)
+        img[max(y - r, 0):y + r, max(x - r, 0):x + r] = rng.integers(60, 256)
+    return torch.tensor(img, dtype=torch.uint8, device=dev)
+
+
+@pytest.mark.parametrize("h,w,settings", [
+    (483, 645, star_kernel.StarSettings()),
+    (480, 640, star_kernel.StarSettings(nms_radius=3)),
+    (37, 50, star_kernel.StarSettings(max_size=4, response_threshold=5.0,
+                                      nms_radius=1)),
+    (200, 131, star_kernel.StarSettings(max_size=45, line_threshold=6.0))])
+def test_star_kernel(dev, h, w, settings):
+    gray = _gray(np.random.default_rng(h), h, w, dev)
+    ii = star._integral(gray, star.integral_pad(settings.max_size))
+    raw, nms = star_kernel.star_cuda(ii, h, w, settings)
+    raw_p, nms_p = star_kernel.star_plain(ii, h, w, settings)
+    assert torch.equal(raw, raw_p) and torch.equal(nms, nms_p)
+    assert int((nms > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("h,w,patch", [(483, 645, 33), (480, 640, 33),
+                                       (50, 70, 15), (301, 97, 33)])
+def test_brief_kernel(dev, h, w, patch):
+    smoothed = brief.smooth(_gray(np.random.default_rng(w), h, w, dev))
+    pattern = brief_kernel.BriefPattern.make(
+        *brief.make_shared_pattern(patch_size=patch), dev)
+    got = brief_kernel.dense_planes_cuda(smoothed, pattern)
+    want = brief_kernel.dense_planes_plain(smoothed, pattern)
+    assert len(got) == len(want) == 8
+    for a, b in zip(got, want):
+        assert a.shape == (h - 2 * pattern.half, w - 2 * pattern.half)
+        assert torch.equal(a, b)

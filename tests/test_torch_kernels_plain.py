@@ -1,5 +1,6 @@
-"""The plain PyTorch versions of the four CUDA kernels against the JAX
-functions their TPU kernels replace, and the wrapper rules.
+"""The plain PyTorch versions of the CUDA kernels against the JAX
+functions their TPU kernels replace, and the wrapper rules (the STAR and
+BRIEF plain versions are held against JAX in tests/test_torch_vision.py).
 
 Each ``*_plain`` is compared with the JAX package's CPU chain (the XLA
 path its TPU-gated kernel dispatch falls back to) on the same numpy
@@ -34,12 +35,16 @@ from openekfmonoslam_tpu_torch.config import CameraCalibration as TCal
 from openekfmonoslam_tpu_torch.config import SlamConfig as TConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera as TCamera
 from openekfmonoslam_tpu_torch.engine import step as tstep
-from openekfmonoslam_tpu_torch.ops import (cuda_lib, init_kernel,
-                                           measure_kernel, predict_kernel,
-                                           sinv, update_kernel)
+from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
+                                           init_kernel, measure_kernel,
+                                           predict_kernel, sinv, star_kernel,
+                                           update_kernel)
+from openekfmonoslam_tpu_torch.vision import brief as tbrief
+from openekfmonoslam_tpu_torch.vision import star as tstar
 
 N, F = 128, 16
-KERNELS = (predict_kernel, measure_kernel, update_kernel, init_kernel)
+KERNELS = (predict_kernel, measure_kernel, update_kernel, init_kernel,
+           star_kernel, brief_kernel)
 DTYPES = {"float64": (jnp.float64, torch.float64),
           "float32": (jnp.float32, torch.float32)}
 
@@ -228,7 +233,15 @@ def _wrapper_inputs():
     feats, is_xyz, active, cam7 = _measure_scene(rng)
     cam = TCamera.from_calibration(TCal())
     t = torch.tensor
+    gray = torch.tensor(rng.integers(0, 256, (45, 61)), dtype=torch.uint8)
+    star = star_kernel.StarSettings(max_size=4, response_threshold=5.0)
+    ii = tstar._integral(gray, tstar.integral_pad(star.max_size))
+    pattern = brief_kernel.BriefPattern.make(
+        *tbrief.make_shared_pattern(patch_size=15), "cpu")
     return {
+        star_kernel: (star_kernel.star_from_integral, (ii, 45, 61, star)),
+        brief_kernel: (brief_kernel.dense_planes,
+                       (tbrief.smooth(gray), pattern)),
         predict_kernel: (predict_kernel.predict,
                          (t(P), t(x), 1.0, 1e-6, 1e-5)),
         measure_kernel: (measure_kernel.measure,
@@ -248,7 +261,9 @@ def test_cpu_tensor_takes_plain_path_without_a_launch(module):
     plain = {predict_kernel: predict_kernel.predict_plain,
              measure_kernel: measure_kernel.measure_plain,
              update_kernel: update_kernel.update_plain,
-             init_kernel: init_kernel.init_plain}[module]
+             init_kernel: init_kernel.init_plain,
+             star_kernel: star_kernel.star_plain,
+             brief_kernel: brief_kernel.dense_planes_plain}[module]
     for got, want in zip(fn(*args), plain(*args)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert module.LAUNCHES.count == 0
@@ -260,7 +275,9 @@ def test_cuda_launch_refuses_cpu_tensors(module):
     launch = {predict_kernel: predict_kernel.predict_cuda,
               measure_kernel: measure_kernel.measure_cuda,
               update_kernel: update_kernel.joint_update_cuda,
-              init_kernel: init_kernel.init_cuda}[module]
+              init_kernel: init_kernel.init_cuda,
+              star_kernel: star_kernel.star_cuda,
+              brief_kernel: brief_kernel.dense_planes_cuda}[module]
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         launch(*args)
     assert module.LAUNCHES.count == 0
@@ -272,8 +289,10 @@ def test_runtime_without_device_needs_cuda(monkeypatch):
         tstep.SlamRuntime(TConfig(max_features=8))
     rt = tstep.SlamRuntime(TConfig(max_features=8), device="cpu")
     assert rt.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        rt.step(rt.make_initial_state(), None)
+    # the live path has the STAR/BRIEF front end only; SlamConfig()
+    # defaults to FAST
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        rt.step(rt.make_initial_state(), np.zeros((48, 64), np.uint8))
     with pytest.raises(NotImplementedError):
         tstep.SlamRuntime(dataclasses.replace(TConfig(),
                                               reference_quirks=True), "cpu")
@@ -284,6 +303,12 @@ def test_cam_params_mirror_the_cuda_struct():
     body = re.search(r"struct CamParams \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"(\w+)[,;]", body.replace("float", ""))
     assert names == [n for n, _ in cuda_lib.CamParams._fields_]
+    star_src = (Path(cuda_lib.CSRC) / "star.cu").read_text()
+    body = re.search(r"struct StarParams \{(.*?)\};", star_src, re.S).group(1)
+    names = re.findall(r"(\w+)(?:\[\w+\])?[,;]",
+                       re.sub(r"\b(int|float)\b", "", body))
+    assert names == [n for n, _ in cuda_lib.StarParams._fields_]
+    assert f"#define STAR_MAX_SIZES {cuda_lib.STAR_MAX_SIZES}" in star_src
     # one launcher per kernel module, every one declared for ctypes
     exported = set()
     for cu in Path(cuda_lib.CSRC).glob("*.cu"):

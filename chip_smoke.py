@@ -40,11 +40,30 @@ Phases, each of which passes or raises (the script then exits non-zero):
               record_live_log) replayed through step_injected on the CPU
               in float64, held against the card's trajectory.
 
+  6. large   the engine API on the large map: SlamEngine("config.yml")
+              with the s3 profile and MaxMapSize 960, which sizes the map
+              at F = 168 slots, N = 1024 (2F = 336), so every update takes
+              the chain with the S-inverse kernel and none the fused
+              update; run_sequence over the phase-5 frames with every
+              launch counter set to 0 just before and read just after,
+              which gives frames/s; a run under sync debug mode (at most
+              2 host syncs a frame, at the summary fetch in
+              SlamEngine.step and the read in phase_mapman), one under
+              torch.profiler (per-phase ms) that saves a checkpoint at
+              frame 100 which a fresh engine resumes to the end (records
+              bit for bit), the S-inverse on a kept frame's own S against
+              float64, and the live log replayed on the CPU in float64.
+
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
-(bit for bit) on a textured 640x480 frame and on an odd 483x645 one.
+(bit for bit) on a textured 640x480 frame and on an odd 483x645 one, the
+S-inverse kernel at M = 192, 336, 512 and 640 (cond 1e2, 1e3, 1e4, and
+the update's masked S at M = 336) against float64, and the fused update
+against the chain with the S-inverse kernel at N = 1024, 2F = 336.
 
 The line before the last is one JSON object with a row per kernel (its
-launches from the live path, phase 5, which runs all six); the last line
+launches from its path: phase 5 for the six kernels of the s3 live path,
+phase 6 for the S-inverse; the S-inverse's times and bound are on a kept
+frame's S of phase 6).  The last line
 is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -68,13 +87,18 @@ from torch.profiler import ProfilerActivity, profile
 from openekfmonoslam_tpu_torch.config import DetectorConfig, SlamConfig
 from openekfmonoslam_tpu_torch.core import camera as cam_mod
 from openekfmonoslam_tpu_torch.core import quaternion as quat
+from openekfmonoslam_tpu_torch.engine import checkpoint as ckpt_mod
+from openekfmonoslam_tpu_torch.engine import engine as engine_mod
 from openekfmonoslam_tpu_torch.engine import scan_runner
+from openekfmonoslam_tpu_torch.engine import step as step_mod
+from openekfmonoslam_tpu_torch.engine.engine import SlamEngine, run_sequence
 from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
                                                    PHASE_PREFIX, SlamRuntime)
 from openekfmonoslam_tpu_torch.eval import replay
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
 from openekfmonoslam_tpu_torch.filter import measure as meas_mod
 from openekfmonoslam_tpu_torch.filter import predict as pred_mod
+from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import dim_active_mask
 from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
@@ -111,7 +135,13 @@ KERNELS = {
     "brief": dict(module=brief_kernel,
                   source="openekfmonoslam_tpu_torch/csrc/brief.cu",
                   replaces="openekfmonoslam_tpu/ops/brief_kernel.py:43"),
+    "sinv": dict(module=sinv,
+                 source="openekfmonoslam_tpu_torch/csrc/sinv.cu",
+                 replaces="openekfmonoslam_tpu/ops/sinv.py:169"),
 }
+# the kernels the s3 live path (phase 5) runs; the S-inverse runs on the
+# large map (phase 6)
+S3_KERNELS = ("predict", "measure", "update", "init", "star", "brief")
 
 T_FRAMES = 220          # frames of the replay path (>= 200)
 T_LIVE = 201            # frames of the live path: init_step + 200 steps
@@ -140,6 +170,11 @@ REPLAY_MASKS_SAME = 0.99
 LIVE_REPLAY_TOL = 1e-4
 LIVE_MASKS_SAME = 0.95
 LIVE_SYNCS_PER_FRAME = 1.0    # the (add?, needed) read of phase_mapman
+# the large map: MaxMapSize 960 sizes F = 168 slots, N = 1024, 2F = 336
+LARGE_F, LARGE_N = 168, 1024
+# the engine's summary fetch and the read of phase_mapman
+LARGE_SYNCS_PER_FRAME = 2.0
+LARGE_CKPT_AT = 100           # the frame whose checkpoint is resumed
 
 
 class PhaseError(RuntimeError):
@@ -152,10 +187,14 @@ def check(failures: list, ok: bool, what: str) -> None:
         failures.append(what)
 
 
+T_START = time.perf_counter()
+
+
 def end_phase(name: str, failures: list) -> None:
     if failures:
         raise PhaseError(f"phase {name} failed: " + "; ".join(failures))
-    print(f"phase {name}: ok", flush=True)
+    print(f"phase {name}: ok ({time.perf_counter() - T_START:.1f} s into "
+          "the run)", flush=True)
 
 
 def smi_line() -> str:
@@ -176,7 +215,7 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def phase_times(prof, frames: int, prefix: str = PHASE_PREFIX) -> dict:
+def phase_times(averages, frames: int, prefix: str = PHASE_PREFIX) -> dict:
     """{phase: {"host_ms", "device_ms"}} a frame from the profiler ranges
     that step_injected (or step, with LIVE_PHASE_PREFIX) opens around its
     phases: the host's wall time inside each range, and the device time of
@@ -184,7 +223,7 @@ def phase_times(prof, frames: int, prefix: str = PHASE_PREFIX) -> dict:
     launched through ctypes, outside any PyTorch op, and the profiler does
     not count them in a range: their times are the kernel table's."""
     out = {}
-    for e in prof.key_averages():
+    for e in averages:
         if (e.key.startswith(prefix)
                 and e.device_type == torch.autograd.DeviceType.CPU):
             out[e.key[len(prefix):]] = {
@@ -197,16 +236,18 @@ def phase_times(prof, frames: int, prefix: str = PHASE_PREFIX) -> dict:
 LIVE_KERNEL_NAMES = ("star_resp", "star_score", "star_nms", "brief_planes")
 
 
-def kernel_device_us(prof, frames: int) -> dict:
+def kernel_device_us(averages, frames: int,
+                     names=LIVE_KERNEL_NAMES) -> dict:
     """{kernel: {"us_per_frame", "calls_per_frame"}} for the device kernels
-    named in LIVE_KERNEL_NAMES, from the profiler's device activity (it
-    sees ctypes launches, which its op ranges do not)."""
+    named in ``names``, from the profiler's device activity (it sees
+    ctypes launches, which its op ranges do not)."""
     out = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for name in LIVE_KERNEL_NAMES:
-            if e.key.startswith(name + "(") or e.key == name:
+        for name in names:
+            if (e.key.startswith(name + "(") or e.key == name
+                    or "::" + name + "(" in e.key):
                 out[name] = {"us_per_frame": e.device_time_total / frames,
                              "calls_per_frame": e.count / frames}
     return out
@@ -544,21 +585,138 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
         flops=2 * n_bits * ih * iw,
         kernel=lambda: brief_kernel.dense_planes(smoothed, pattern),
         plain=lambda: brief_kernel.dense_planes_plain(smoothed, pattern))
+
+    # ---- sinv: the standalone S-inverse at M = 2F of the large map and
+    # around it, against float64
+    sinv_checks = []
+    cases = [(m, cond, spd_cond(m, cond)) for m in SINV_M
+             for cond in SINV_CONDS] + [(336, "masked", masked_s(336))]
+    for m, cond, s_np in cases:
+        S = torch.tensor(s_np, **f32)
+        rel, err, steps = check_sinv(failures, f"M {m} cond {cond}", S,
+                                     1.0, sinv_limit(cond))
+        sinv_checks.append(dict(M=m, cond=cond, rel_err=rel, abs_err=err,
+                                rescue_steps=steps))
+    check(failures, any(c["rescue_steps"] > 0 for c in sinv_checks),
+          "the S-inverse's rescue branch ran on at least one case")
+    S336 = torch.tensor(spd_cond(336, 1e2), **f32)
+    rows["sinv_spd336"] = sinv_row(S336, 1.0, max(
+        c["abs_err"] for c in sinv_checks if c["M"] == 336))
+
+    # ---- the fused update against the chain with the S-inverse kernel
+    # on one problem at the large map's N = 1024, 2F = 336
+    Fl = LARGE_F
+    Nl = 13 + 6 * Fl + (-(13 + 6 * Fl)) % 128
+    prob = _update_problem(rng, Nl, Fl, 0.6)
+    Pl, xl, HPl, Sfl, uvl, zl = (torch.tensor(a, **f32) for a in prob[:6])
+    usel = torch.tensor(prob[6], device=dev)
+    argsl = (Pl, xl, HPl, Sfl, uvl, zl, usel, pe)
+    x64, P64 = update_kernel.update_plain(
+        *[a.double() for a in argsl[:6]], usel, pe)
+    Mu = int(usel.sum()) * 2
+    for tag, fn in (("update_fused_n1024", update_kernel.joint_update),
+                    ("update_chain_n1024", upd_mod.update_chain)):
+        xk, Pk = fn(*argsl)
+        ex, eP = max_abs(xk, x64), max_abs(Pk, P64)
+        check(failures, ex <= TOL["update_x"] and eP <= TOL["update_P"],
+              f"{tag}: x err {ex:.3e} <= {TOL['update_x']}, P err "
+              f"{eP:.3e} <= {TOL['update_P']}")
+        rows[tag] = dict(
+            max_abs_err=max(ex, eP),
+            bytes=4 * (2 * Nl * Nl + 2 * Nl + Mu * Nl + Mu * Mu + 4 * Fl)
+            + Fl,
+            flops=(2 * Mu ** 3 + 2 * Mu * Mu * Nl + 2 * Mu * Nl * Nl
+                   + 2 * Mu * Nl),
+            kernel=lambda fn=fn: fn(*argsl),
+            plain=lambda: update_kernel.update_plain(*argsl))
+    rows["sinv_spd336"]["checks"] = sinv_checks
     end_phase("kernels (checks)", failures)
 
     for name, row in rows.items():
-        row["ms"] = graph_ms(row["kernel"])
-        row["eager_ms"] = events_ms(row["kernel"], EAGER_REPS)
-        row["plain_ms"] = events_ms(row["plain"], PLAIN_REPS)
-        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"],
-                                                    row["flops"])
-        print(f"  {name}: {row['ms'] * 1e3:.2f} us/launch on the device "
-              f"(eager {row['eager_ms'] * 1e3:.2f} us), plain "
-              f"{row['plain_ms'] * 1e3:.2f} us, bound "
-              f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
-              f"({row['bytes']} B, {row['flops']} flop)", flush=True)
-        del row["kernel"], row["plain"]
+        time_row(name, row)
+    print(f"  timed ({time.perf_counter() - T_START:.1f} s into the run)",
+          flush=True)
     return rows
+
+
+def time_row(name: str, row: dict) -> None:
+    """A kernel row's device time (CUDA graph), eager time, plain and
+    library times and bound, in place; drops its callables."""
+    row["ms"] = graph_ms(row["kernel"])
+    row["eager_ms"] = events_ms(row["kernel"], EAGER_REPS)
+    row["plain_ms"] = events_ms(row["plain"], PLAIN_REPS)
+    library = row.pop("library", None)
+    row["library_ms"] = (events_ms(library, EAGER_REPS)
+                         if library is not None else None)
+    row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"])
+    lib = ("" if row["library_ms"] is None
+           else f", library {row['library_ms'] * 1e3:.2f} us")
+    print(f"  {name}: {row['ms'] * 1e3:.2f} us/launch on the device "
+          f"(eager {row['eager_ms'] * 1e3:.2f} us), plain "
+          f"{row['plain_ms'] * 1e3:.2f} us{lib}, bound "
+          f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
+          f"({row['bytes']} B, {row['flops']} flop)", flush=True)
+    del row["kernel"], row["plain"]
+
+
+# ------------------------------------------------------- the S-inverse
+
+SINV_M = (192, 336, 512, 640)
+SINV_CONDS = (1e2, 1e3, 1e4)
+
+
+def spd_cond(m: int, cond: float, seed: int = 0) -> np.ndarray:
+    """tests/test_sinv.py ``_spd``: eigenvalues geomspace(1, cond)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(m, m)))
+    s = (q * np.geomspace(1.0, cond, m)) @ q.T
+    return ((s + s.T) / 2).astype(np.float32)
+
+
+def masked_s(m: int, seed: int = 1) -> np.ndarray:
+    """tests/test_sinv.py's masked S: identity rows for unused slots, the
+    shape the update gives the inverse."""
+    rng = np.random.default_rng(seed)
+    used = rng.random(m) < 0.6
+    h = rng.normal(size=(m, 30)) * 3.0
+    s = np.zeros((m, m), np.float32)
+    s[np.ix_(used, used)] = (h @ h.T)[np.ix_(used, used)]
+    s[np.diag_indices(m)] += 1.0
+    return s
+
+
+def sinv_limit(cond) -> float:
+    """The TPU kernel tests' bounds (tests/test_sinv.py:44,63)."""
+    return 1e-4 if cond == "masked" else 3e-5 * max(cond / 1e2, 1.0)
+
+
+def check_sinv(failures, tag, S, lam_floor, limit
+               ) -> tuple[float, float, int]:
+    """The S-inverse kernel on S against the float64 inverse; returns the
+    relative and absolute errors and the rescue steps taken."""
+    X, steps = sinv.sinv_cuda(S, lam_floor)
+    want = torch.linalg.inv(S.double())
+    err = max_abs(X, want)
+    rel = err / float(want.abs().max())
+    steps = int(steps)
+    check(failures, rel <= limit,
+          f"sinv[{tag}] rel err {rel:.3e} <= {limit:.1e} ({steps} rescue "
+          f"steps)")
+    return rel, err, steps
+
+
+def sinv_row(S: torch.Tensor, lam_floor: float, err: float) -> dict:
+    """A kernel-table row for the S-inverse on S: its bound counts S in
+    and S^-1 out, and the Mu^3 operations of an SPD inverse over the Mu
+    rows that are not identity rows."""
+    M = S.shape[0]
+    eye = torch.eye(M, dtype=S.dtype, device=S.device)
+    Mu = int(((S - eye).abs().sum(dim=1) > 0).sum())
+    return dict(
+        max_abs_err=err, M=M, used_rows=Mu, bytes=8 * M * M, flops=Mu ** 3,
+        kernel=lambda: sinv.sinv_cuda(S, lam_floor),
+        plain=lambda: sinv.ns_inverse(S, lam_floor),
+        library=lambda: torch.linalg.inv(S))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -749,7 +907,7 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         replay.run_uploaded(runtime, ulog)
         torch.cuda.synchronize()
-    phase_ms = phase_times(prof, T_FRAMES)
+    phase_ms = phase_times(prof.key_averages(), T_FRAMES)
     print("  per-phase ms/frame under the profiler (host, device of "
           "PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
@@ -759,6 +917,7 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
     check(failures, launches["predict"] == T, f"predict launches {T}")
     check(failures, launches["measure"] == 2 * T, f"measure launches {2 * T}")
     check(failures, launches["update"] == 2 * T, f"update launches {2 * T}")
+    check(failures, launches["sinv"] == 0, "no S-inverse launch")
     check(failures, launches["init"] >= 1, "init launched at least once")
     check(failures, bool(torch.isfinite(state.x).all())
           and bool(torch.isfinite(state.P).all()), "final x and P finite")
@@ -883,6 +1042,8 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     check(failures, launches["predict"] == S, f"predict launches {S}")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
     check(failures, launches["update"] == 2 * S, f"update launches {2 * S}")
+    check(failures, launches["sinv"] == 0,
+          "no S-inverse launch on the s3 map (the fused update applies)")
     check(failures, 1 <= launches["init"] <= T,
           f"init launched on init_step and on add frames only "
           f"({launches['init']})")
@@ -914,12 +1075,13 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         scan_runner.scan_frames(runtime, st0, gpu_frames[1:])
         torch.cuda.synchronize()
-    phase_ms = phase_times(prof, S, LIVE_PHASE_PREFIX)
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, S, LIVE_PHASE_PREFIX)
     print("  per-phase ms/frame under the profiler (host, device of "
           "PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
                       for k, v in phase_ms.items()), flush=True)
-    vision_us = kernel_device_us(prof, S)
+    vision_us = kernel_device_us(averages, S)
     print("  STAR and BRIEF device kernels under the profiler (us a frame, "
           "calls a frame): "
           + ", ".join(f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
@@ -982,6 +1144,250 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                             dev_per_frame=dev.tolist()))
 
 
+# ----------------------------------------------------------------- phase 6
+
+LARGE_MAP_CONFIG = """%YAML:1.0
+RunConfiguration:
+  ExtendedKalmanFilter: "S3"
+  FeatureDetector: "STAR"
+  DescriptorExtractor: "BRIEF"
+ExtendedKalmanFilter:
+  S3:
+    MinMatchesPerImage: "60"
+    MaxMapSize: "960"
+FeatureDetector:
+  STAR:
+    Type: "STAR"
+    MaxSize: "16"
+    ResponseThreshold: "30"
+    LineThresholdProjected: "10"
+    SuppressNonmaxSize: "5"
+DescriptorExtractor:
+  BRIEF:
+    Type: "BRIEF"
+    BytesLength: "32"
+"""
+
+
+def source_line(module, needle: str) -> str:
+    """"file:line" of the first line of ``module`` that holds ``needle``
+    (the form in which count_syncs names a sync's site)."""
+    path = Path(module.__file__)
+    for i, line in enumerate(path.read_text().splitlines(), start=1):
+        if needle in line:
+            return f"{path.name}:{i}"
+    raise PhaseError(f"{needle!r} not found in {path.name}")
+
+
+def record_values(records) -> np.ndarray:
+    """(T, 182) state and covariance corner of the engine's records."""
+    return np.array([r["position"] + r["orientation"] + r["linear_velocity"]
+                     + r["angular_velocity"]
+                     + sum(r["covariance_cam"], []) for r in records])
+
+
+def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
+    print("== phase 6: the engine on the large map", flush=True)
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "large_map_config.yml"
+    path.write_text(LARGE_MAP_CONFIG)
+    frames = live_frames(T)
+    S = T - 1
+    engine = SlamEngine(str(path), output_path=str(OUT / "large_map"))
+    cfg = engine.config
+    F, N = cfg.max_features, cfg.padded_state_dim
+    print(f"  SlamEngine(config.yml, MaxMapSize {cfg.ekf.max_map_size}): "
+          f"F = {F}, N = {N} (state dim {cfg.state_dim}), 2F = {2 * F}; "
+          f"{cfg.detector.kind} max size {cfg.detector.star_max_size}, "
+          f"response {cfg.detector.star_response_threshold}, line "
+          f"{cfg.detector.star_line_threshold}, NMS radius "
+          f"{cfg.detector.nonmax_radius}; {cfg.descriptor.kind}-"
+          f"{cfg.descriptor.n_bits}; MinMatchesPerImage "
+          f"{cfg.ekf.min_matches_per_image}; {cfg.dtype}, on "
+          f"{engine.device}", flush=True)
+    check(failures, (F, N) == (LARGE_F, LARGE_N),
+          f"F = {F}, N = {N} (want {LARGE_F}, {LARGE_N})")
+    if (F, N) != (LARGE_F, LARGE_N):
+        return {}
+
+    # warm-up off the clock: first calls, allocations, add frames
+    run_sequence(SlamEngine(str(path)), frames[:21])
+    torch.cuda.synchronize()
+
+    # the main path: every launch counter at 0 just before, read just after
+    for spec in KERNELS.values():
+        spec["module"].LAUNCHES.reset()
+    t0 = time.perf_counter()
+    records = run_sequence(engine, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: spec["module"].LAUNCHES.count
+                for name, spec in KERNELS.items()}
+    engine.close()
+    fps = T / elapsed
+    print(f"  main path: run_sequence over {T} frames in {elapsed:.4f} s = "
+          f"{fps:.2f} frames/s (init, the uploads and the per-frame "
+          f"summaries included)", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    check(failures, launches["sinv"] == 2 * S,
+          f"S-inverse launches {launches['sinv']} == {2 * S} (2 a step)")
+    check(failures, launches["update"] == 0,
+          f"fused update launches {launches['update']} == 0")
+    check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
+    check(failures, launches["star"] == T and launches["brief"] == T,
+          f"star and brief launched once a frame plus once for init ({T})")
+    check(failures, 1 <= launches["init"] <= T,
+          f"init launched on init and on add frames only "
+          f"({launches['init']})")
+    check(failures, bool(torch.isfinite(engine.state.x).all())
+          and bool(torch.isfinite(engine.state.P).all()),
+          "final x and P finite")
+    matched = np.array([r["total_matches"] for r in records])
+    inl = np.array([r["li_inliers"] + r["hi_inliers"] for r in records])
+    active = np.array([r["n_active"] for r in records])
+    healthy = float(np.mean(inl >= 0.5 * matched))
+    check(failures, healthy >= 0.9 and matched.mean() >= 20,
+          f"tracking healthy on {healthy:.3f} of frames (>= 0.9): mean "
+          f"matched {matched.mean():.1f} (>= 20), mean inliers "
+          f"{inl.mean():.1f}, mean active {active.mean():.1f}, max active "
+          f"{active.max()}")
+
+    # host syncs a frame, by site: only the two named lines may sync
+    allowed = {source_line(engine_mod, "packed.cpu()"),
+               source_line(step_mod, ".tolist()")}
+    eng_sync = SlamEngine(str(path))
+    eng_sync.init(frames[0])
+    torch.cuda.synchronize()
+    sites, sync_s = count_syncs(
+        lambda: [eng_sync.step(f) for f in frames[1:]])
+    syncs = sum(sites.values())
+    print(f"  sync debug run: {S / sync_s:.2f} steps/s, {syncs} host syncs "
+          f"({syncs / S:.3f} per frame): {dict(sites)}", flush=True)
+    check(failures, syncs / S <= LARGE_SYNCS_PER_FRAME
+          and set(sites) <= allowed,
+          f"host syncs per frame {syncs / S:.3f} <= "
+          f"{LARGE_SYNCS_PER_FRAME}, only at {sorted(allowed)}")
+
+    # per-phase host and device ms under the profiler over the first
+    # LARGE_CKPT_AT steps; the same engine then saves the checkpoint that
+    # a fresh engine resumes, and runs on to the end
+    ckpt = OUT / "large_map_checkpoint.npz"
+    eng_prof = SlamEngine(str(path))
+    eng_prof.init(frames[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in frames[1:LARGE_CKPT_AT + 1]:
+            eng_prof.step(f)
+        torch.cuda.synchronize()
+    eng_prof.save_checkpoint(str(ckpt))
+    for f in frames[LARGE_CKPT_AT + 1:]:
+        eng_prof.step(f)
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, LARGE_CKPT_AT, LIVE_PHASE_PREFIX)
+    print(f"  per-phase ms/frame under the profiler over {LARGE_CKPT_AT} "
+          "steps (host, device of PyTorch's kernels): "
+          + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+                      for k, v in phase_ms.items()), flush=True)
+    kernel_us = kernel_device_us(averages, LARGE_CKPT_AT,
+                                 LIVE_KERNEL_NAMES + ("sinv_ns",))
+    print("  hand-written device kernels under the profiler (us a frame, "
+          "calls a frame): "
+          + ", ".join(f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
+                      for k, v in kernel_us.items()), flush=True)
+    same_run = float(np.abs(record_values(eng_prof.records)
+                            - record_values(records[:S])).max())
+    print(f"  profiled run vs the main run: max |difference| {same_run:.3e}",
+          flush=True)
+
+    # a fresh engine resumes the frame-100 checkpoint and runs to the end
+    resumed = SlamEngine(str(path))
+    resumed.resume(str(ckpt))
+    for f in frames[LARGE_CKPT_AT + 1:]:
+        resumed.step(f)
+    want = eng_prof.records[LARGE_CKPT_AT:]
+    strip = [{k: v for k, v in r.items() if k != "wall_time_s"}
+             for r in resumed.records]
+    identical = strip == [{k: v for k, v in r.items() if k != "wall_time_s"}
+                          for r in want]
+    resume_diff = float(np.abs(record_values(resumed.records)
+                               - record_values(want)).max())
+    print(f"  resumed at frame {LARGE_CKPT_AT}: {len(resumed.records)} "
+          f"records, identical to the uninterrupted run: {identical} "
+          f"(max |difference| {resume_diff:.3e})", flush=True)
+    check(failures, identical and len(strip) == S - LARGE_CKPT_AT,
+          "the resumed run's records equal the uninterrupted run's bit for "
+          "bit")
+
+    # the live log of this configuration, replayed on the CPU in float64
+    gpu_frames = engine.runtime._tensor(frames)
+    log = replay.record_live_log(engine.runtime, gpu_frames)
+    card = log["records"]
+    log_vs_main = float(np.abs(card.x_cam[:, 0:3].astype(np.float64)
+                               - record_values(records)[:, 0:3]).max())
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(rt64, log)
+    cpu_s = time.perf_counter() - t0
+    ref = np.stack([r.x_cam.numpy() for r in recs64])
+    dev = np.linalg.norm(card.x_cam[:, 0:3].astype(np.float64)
+                         - ref[:, 0:3], axis=1)
+    same_inl = np.mean([np.array_equal(a, b.inliers.numpy())
+                        for a, b in zip(card.inliers, recs64)])
+    same_vis = np.mean([np.array_equal(a, b.visible.numpy())
+                        for a, b in zip(card.visible, recs64)])
+    worst = int(np.argmax(dev))
+    print(f"  live log: {len(log['init'])} bootstrap features, "
+          f"{sum(len(f['new']) for f in log['frames'])} additions; its run "
+          f"vs the engine's: max |position| difference {log_vs_main:.3e}",
+          flush=True)
+    print(f"  float64 CPU replay {cpu_s:.1f} s: camera-position deviation "
+          f"max {dev.max():.3e} (frame {worst + 1}), mean {dev.mean():.3e}, "
+          f"final {dev[-1]:.3e}; inlier masks identical on {same_inl:.3f} "
+          f"of frames, visibility on {same_vis:.3f}", flush=True)
+    check(failures, bool((dev <= LIVE_REPLAY_TOL).all()),
+          f"large-map replay deviation <= {LIVE_REPLAY_TOL} on every frame "
+          f"(worst {dev[worst]:.3e})")
+    check(failures, same_inl >= LIVE_MASKS_SAME
+          and same_vis >= LIVE_MASKS_SAME,
+          f"large-map replay masks identical on >= {LIVE_MASKS_SAME} of "
+          "frames")
+
+    # the S-inverse on the path's own S: frame 101's prediction from the
+    # checkpointed state, with that frame's inliers as the used slots
+    state = ckpt_mod.load_checkpoint(str(ckpt), like=resumed.state)
+    _, pred = engine.runtime.phase_predict(state)
+    use = torch.tensor(card.inliers[LARGE_CKPT_AT], device=state.x.device)
+    pe = cfg.camera.pixel_error_x
+    S_path = _masked_S(pred.Sfull, use, pe).contiguous()
+    eig = torch.linalg.eigvalsh(S_path.double())
+    cond = float(eig.max() / eig.min())
+    rel, err, steps = check_sinv(failures, f"frame {LARGE_CKPT_AT + 1}",
+                                 S_path, min(pe, 1.0), sinv_limit(cond))
+    row = sinv_row(S_path, min(pe, 1.0), err)
+    row.update(rel_err=rel, cond=cond, rescue_steps=steps)
+    return dict(launches=launches, fps=fps, elapsed_s=elapsed,
+                F=F, N=N, syncs=syncs, syncs_per_frame=syncs / S,
+                sync_sites=dict(sites), fps_sync_debug=S / sync_s,
+                phase_ms=phase_ms, kernels_us=kernel_us, healthy=healthy,
+                mean_matched=float(matched.mean()),
+                mean_inliers=float(inl.mean()),
+                mean_active=float(active.mean()),
+                max_active=int(active.max()),
+                profiled_vs_main=same_run,
+                resume=dict(identical=identical, max_diff=resume_diff),
+                replay=dict(cpu_s=cpu_s, dev_max=float(dev.max()),
+                            dev_mean=float(dev.mean()),
+                            dev_final=float(dev[-1]),
+                            inliers_same=float(same_inl),
+                            visible_same=float(same_vis),
+                            log_run_vs_main=log_vs_main,
+                            dev_per_frame=dev.tolist()),
+                sinv_row=row)
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1013,21 +1419,34 @@ def main() -> int:
     failures = []
     live = phase_live(live_cfg, failures)
     end_phase("live", failures)
+    failures = []
+    large = phase_large_map(failures)
+    end_phase("large map", failures)
+    rows["sinv"] = large.pop("sinv_row")
+    print("  the S-inverse on the path's own S (M = "
+          f"{rows['sinv']['M']}, {rows['sinv']['used_rows']} used rows, cond "
+          f"{rows['sinv']['cond']:.3e}):", flush=True)
+    time_row("sinv", rows["sinv"])
 
     T = T_FRAMES
     kernels = []
     for name, spec in KERNELS.items():
         row = rows[name]
+        # each kernel's launches come from the path that runs it
+        on = large if name == "sinv" else live
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
-            "launches": live["launches"][name],
+            "launches": on["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "eager_ms": row["eager_ms"],
-            "launches_per_frame": live["launches"][name] / T_LIVE,
-            "launches_replay_path": path["launches"][name]})
+            "launches_per_frame": on["launches"][name] / T_LIVE,
+            "launches_replay_path": path["launches"][name],
+            "launches_s3_live_path": live["launches"][name],
+            "launches_large_map": large["launches"][name]})
+    extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024")
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
@@ -1037,13 +1456,18 @@ def main() -> int:
                       "healthy", "mean_matched", "mean_inliers",
                       "replay_vs_recording", "launches")},
                   frames=T, syncs_per_frame=path["syncs"] / T, replay=rep,
-                  live={k: v for k, v in live.items()})
+                  live={k: v for k, v in live.items()},
+                  large_map=large, sinv_path_row=rows["sinv"],
+                  large_map_kernels={k: rows[k] for k in extra})
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"replay path: frames/s {path['fps']:.2f} over {T} frames, host "
           f"syncs/frame {path['syncs'] / T:.3f}", flush=True)
     print(f"live path: frames/s {live['fps']:.2f} over {T_LIVE} frames, "
           f"host syncs/frame {live['syncs_per_frame']:.3f}", flush=True)
+    print(f"large map (F = {large['F']}, N = {large['N']}): frames/s "
+          f"{large['fps']:.2f} over {T_LIVE} frames, host syncs/frame "
+          f"{large['syncs_per_frame']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

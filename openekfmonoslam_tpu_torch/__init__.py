@@ -12,6 +12,9 @@ The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 the caller passes ``device="cpu"``.
 
 Ported so far:
+  * the engine API: ``engine.engine.SlamEngine`` and ``run_sequence``,
+    ``engine.checkpoint`` (files in the JAX layout) and the CLI,
+    ``python -m openekfmonoslam_tpu_torch.cli``;
   * the live path: ``SlamRuntime.init_step`` and ``SlamRuntime.step`` with
     the STAR detector and BRIEF descriptors (the s3 profile), and
     ``engine.scan_runner`` (``scan_frames``, ``run_sequence_on_device``);

@@ -1,0 +1,304 @@
+"""Host-side engine: the reference's 3-call public API, plus outputs (port
+of engine/engine.py).
+
+The reference's public surface is ``EKF(configFile, outputPath)``,
+``EKF::init(image)`` and ``EKF::step(image)``, with direct access to
+``state`` and ``stateCovarianceMatrix`` (EKF.h:41-63).  SlamEngine mirrors
+that:
+
+    engine = SlamEngine("config.yml", output_path="out/")
+    engine.init(first_frame)          # EKF::init
+    for frame in frames:
+        record = engine.step(frame)   # EKF::step
+    engine.state_vector, engine.covariance   # state access
+    engine.close()
+
+It runs on the first CUDA device unless ``device="cpu"`` is given.  A
+config path sizes the map with ``auto_max_features`` from the file's
+MaxMapSize, as the JAX engine does: ``MaxMapSize: 960`` gives F = 168
+slots and a padded state of N = 1024.
+
+Per-frame records carry the observables the reference writes to
+output.yml (state, 13x13 covariance corner, match/inlier counts, per-phase
+wall times; EKF.cpp:405-628), as JSONL plus an output.yml for the
+resultReader tooling (``eval/result_reader.py``).  ``step`` reads one
+packed summary back a frame, in one device-to-host copy; the step itself
+adds the one read of ``SlamRuntime.phase_mapman``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from openekfmonoslam_tpu_torch.config import (SlamConfig, auto_max_features,
+                                              load_config)
+from openekfmonoslam_tpu_torch.engine import checkpoint
+from openekfmonoslam_tpu_torch.engine.step import SlamRuntime, StepRecord
+from openekfmonoslam_tpu_torch.eval import result_reader
+from openekfmonoslam_tpu_torch.io.sources import to_gray
+
+# where the JAX engine's options that are not ported yet stand in ROADMAP.md
+_GRAPH = "the keyframe pose graph (ROADMAP Queue 1 item 16, graph/)"
+_VIZ = "viz/ (ROADMAP Queue 1 item 19)"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+class SlamEngine:
+    def __init__(self, config: "str | os.PathLike | SlamConfig",
+                 output_path: Optional[str] = None, render: bool = False,
+                 render_debug: bool = False,
+                 keyframe_every: int = 0, keyframe_capacity: int = 256,
+                 relocalize_after: int = 0, lost_matches_threshold: int = 4,
+                 phase_timing: bool = False, viz3d_every: int = 0,
+                 device=None, **overrides):
+        if render or render_debug:
+            raise _not_ported(f"rendering overlays, {_VIZ},")
+        if viz3d_every > 0:
+            raise _not_ported(f"the 3D map view, {_VIZ},")
+        if keyframe_every > 0:
+            raise _not_ported(_GRAPH)
+        if isinstance(config, SlamConfig):
+            cfg = config
+        else:
+            cfg = load_config(os.fspath(config))
+            if "max_features" not in overrides:
+                overrides["max_features"] = auto_max_features(cfg.ekf)
+            cfg = dataclasses.replace(cfg, **overrides)
+        self.config = cfg
+        self.runtime = SlamRuntime(cfg, device=device)
+        self.device = self.runtime.device
+        self.state = self.runtime.make_initial_state()
+        self.records: list[dict] = []
+        self.frame_index = 0
+        # the reference's 7-phase microsecond timing channel
+        # (EKF.cpp:255-618): each phase_* method bracketed by a device sync
+        self.phase_timing = phase_timing
+        # automatic relocalization: after ``relocalize_after`` consecutive
+        # frames with fewer than ``lost_matches_threshold`` matches, drop
+        # the map, keep the pose, and re-bootstrap from the current frame
+        # (EKF.cpp:587-588 / MapManagement.cpp:263-275).  0 disables.
+        self.relocalize_after = relocalize_after
+        self.lost_matches_threshold = lost_matches_threshold
+        self.lost_streak = 0
+        self.relocalizations = 0
+
+        self.output_path = output_path
+        self._jsonl = None
+        self._log = None
+        if output_path:
+            os.makedirs(output_path, exist_ok=True)
+            self._jsonl = open(os.path.join(output_path, "records.jsonl"),
+                               "w")
+            # human-readable per-step state dump (the reference's log.txt
+            # channel, EKF.cpp:135-136 + State::showDetailed,
+            # State.cpp:229-258)
+            self._log = open(os.path.join(output_path, "log.txt"), "w")
+            self._log.write(f"seed: {self.config.seed}\n")
+
+    # ------------------------------------------------------------------
+    def _upload(self, image: np.ndarray) -> torch.Tensor:
+        """The gray frame on the engine's device; to the card through
+        pinned memory, without a host sync."""
+        gray = torch.from_numpy(np.array(to_gray(np.asarray(image))))
+        if self.device.type == "cuda":
+            return gray.pin_memory().to(self.device, non_blocking=True)
+        return gray.to(self.device)
+
+    def init(self, image: np.ndarray) -> None:
+        """EKF::init (EKF.cpp:170-237)."""
+        self.state = self.runtime.init_step(self.state, self._upload(image))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _step_timed(self, gray: torch.Tensor) -> tuple:
+        """Run the step as its 7 phase methods, timing each between device
+        syncs (the EKF.cpp timer brackets; the JAX engine's
+        block_until_ready).  Returns (record, phase_times_us)."""
+        rt = self.runtime
+        times = {}
+
+        def bracket(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._sync()
+            times[name] = (time.perf_counter() - t0) * 1e6
+            return out
+
+        state = self.state
+        state, pred = bracket("Prediction", rt.phase_predict, state)
+        m, aux, in_ellipse = bracket("Matching", rt.phase_match, state, pred,
+                                     gray)
+        res = bracket("Ransac", rt.phase_ransac, state, pred, m)
+        state = bracket("UpdateLI", rt.phase_update_li, state, pred, m,
+                        res.inliers)
+        pred2, rescued = bracket("RescueOutliers", rt.phase_rescue, state, m,
+                                 res.outliers)
+        state = bracket("UpdateHI", rt.phase_update_hi, state, pred2, m,
+                        rescued)
+        state, new_uv, new_ok, new_slot = bracket(
+            "MapManagement", rt.phase_mapman, state, pred, m,
+            res.inliers | rescued, aux, in_ellipse)
+        self.state = state
+        rec = rt.make_record(state, pred, m, res, rescued, new_uv, new_ok,
+                             new_slot)
+        return rec, times
+
+    def _summary(self, rec: StepRecord) -> np.ndarray:
+        """The frame's packed summary, x_cam (13) | P_cam (169) | 7
+        counters, read back in one device-to-host copy."""
+        state = self.state
+
+        def count(mask):
+            return torch.sum(mask, dtype=torch.int32)
+
+        counters = torch.stack([
+            rec.total_matches, rec.li_inliers, rec.hi_inliers,
+            rec.n_active, rec.n_visible,
+            count(state.active & state.is_xyz),
+            count(state.active & ~state.is_xyz)]).to(rec.x_cam.dtype)
+        packed = torch.cat([rec.x_cam, rec.P_cam.reshape(-1), counters])
+        return packed.cpu().numpy().astype(np.float64)
+
+    def step(self, image: np.ndarray) -> dict:
+        """EKF::step (EKF.cpp:242-666); returns the per-frame record."""
+        t0 = time.perf_counter()
+        gray = self._upload(image)
+        phase_times = None
+        if self.phase_timing:
+            rec, phase_times = self._step_timed(gray)
+        else:
+            self.state, rec = self.runtime.step(self.state, gray)
+        self.frame_index += 1
+        # no separate sync: the summary's copy waits for the step
+        summary = self._summary(rec)
+        record = self._summary_to_dict(summary, time.perf_counter() - t0)
+        if phase_times is not None:
+            record["phase_times_us"] = phase_times
+            record["phase_times_source"] = "measured"
+
+        if self.relocalize_after > 0:
+            if record["total_matches"] < self.lost_matches_threshold:
+                self.lost_streak += 1
+            else:
+                self.lost_streak = 0
+            if self.lost_streak >= self.relocalize_after:
+                fresh = self.runtime.make_initial_state()
+                self.state = checkpoint.reset_map(self.state, fresh)
+                self.state = self.runtime.init_step(self.state, gray)
+                self.lost_streak = 0
+                self.relocalizations += 1
+                record["relocalized"] = True
+
+        self.records.append(record)
+        if self._jsonl:
+            self._jsonl.write(json.dumps(record) + "\n")
+        if self._log:
+            p, q = record["position"], record["orientation"]
+            self._log.write(
+                f"step {record['frame']}\n"
+                f"  position: {p[0]:.9f} {p[1]:.9f} {p[2]:.9f}\n"
+                f"  orientation: {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} "
+                f"{q[3]:.9f}\n"
+                f"  matches {record['total_matches']} inliers "
+                f"{record['li_inliers']}+{record['hi_inliers']} "
+                f"map {record['n_active']}\n")
+        return record
+
+    def corrected_trajectory(self, iterations: int = 40) -> np.ndarray:
+        raise _not_ported(_GRAPH)
+
+    def add_loop_closure(self, i: int, j: int, dr, dq, info=None) -> None:
+        raise _not_ported(_GRAPH)
+
+    def optimize_pose_graph(self, iterations: int = 10):
+        raise _not_ported(_GRAPH)
+
+    # ------------------------------------------------------------------
+    @property
+    def state_vector(self) -> np.ndarray:
+        return self.state.x.cpu().numpy()
+
+    @property
+    def covariance(self) -> np.ndarray:
+        return self.state.P.cpu().numpy()
+
+    @property
+    def camera_position(self) -> np.ndarray:
+        return self.state.x[0:3].cpu().numpy()
+
+    def _summary_to_dict(self, s: np.ndarray, wall_s: float) -> dict:
+        """The per-frame record dict from the one fetched summary."""
+        x = s[0:13]
+        c = s[182:189]
+        return {
+            "frame": self.frame_index,
+            "position": x[0:3].tolist(),
+            "orientation": x[3:7].tolist(),
+            "linear_velocity": x[7:10].tolist(),
+            "angular_velocity": x[10:13].tolist(),
+            "covariance_cam": s[13:182].reshape(13, 13).tolist(),
+            "total_matches": int(c[0]),
+            "li_inliers": int(c[1]),
+            "hi_inliers": int(c[2]),
+            "n_active": int(c[3]),
+            "n_visible": int(c[4]),
+            "n_xyz": int(c[5]),
+            "n_inverse_depth": int(c[6]),
+            "wall_time_s": wall_s,
+        }
+
+    def write_output_yml(self) -> Optional[str]:
+        """Reference-shaped output.yml dump (EKF.cpp:614-629 layout incl.
+        phase timings and the 13x13 covariance corner)."""
+        if not self.output_path:
+            return None
+        path = os.path.join(self.output_path, "output.yml")
+        return result_reader.write_output_yml(self.records, path)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Exact-resume checkpoint of the full filter carry."""
+        checkpoint.save_checkpoint(path, self.state)
+
+    def resume(self, path: str) -> None:
+        """Restore a checkpoint (bit-exact continuation; the capability the
+        reference left unimplemented, State.cpp:364-367)."""
+        self.state = checkpoint.load_checkpoint(path, like=self.state)
+        self.frame_index = int(self.state.frame)
+
+    def close(self) -> None:
+        if self._jsonl:
+            self._jsonl.close()
+            self._jsonl = None
+        if self._log:
+            self._log.close()
+            self._log = None
+        self.write_output_yml()
+
+
+def run_sequence(engine: SlamEngine, source, max_frames: Optional[int] = None,
+                 progress_every: int = 0) -> list[dict]:
+    """Drive an engine over a frame source (samples/EKF/main.cpp:123-167)."""
+    it = iter(source)
+    first = next(it)
+    engine.init(first)
+    for i, frame in enumerate(it):
+        if max_frames is not None and i >= max_frames:
+            break
+        rec = engine.step(frame)
+        if progress_every and (i + 1) % progress_every == 0:
+            print(f"frame {rec['frame']}: matches={rec['total_matches']} "
+                  f"inliers={rec['li_inliers']}+{rec['hi_inliers']} "
+                  f"map={rec['n_active']} {rec['wall_time_s']*1e3:.1f} ms")
+    return engine.records

@@ -79,6 +79,7 @@ _SIGNATURES = {
                    _P],
     "ekf_star": [_P, ctypes.POINTER(StarParams), _P, _P, _P, _P],
     "ekf_brief": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "ekf_sinv": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
 }
 
 

@@ -25,7 +25,9 @@ it does not fit.  Outputs are new tensors; P is never written.
 
 ``joint_update`` is the wrapper: a CPU tensor runs ``update_plain`` (the
 filter/update.py kalman_update + finalize_update chain), a CUDA tensor
-launches the kernels or raises.
+launches the kernels or raises.  ``filter/update.update`` takes this
+kernel only where ``update_kernel_applicable`` holds, as the JAX package
+does; elsewhere it runs the chain with the S-inverse kernel (ops/sinv.py).
 """
 
 from __future__ import annotations
@@ -36,15 +38,38 @@ from openekfmonoslam_tpu_torch.ops import cuda_lib
 
 LAUNCHES = cuda_lib.LaunchCounter("update")
 
+# The JAX package's routing (ops/update_kernel.py:205-215): its one-launch
+# TPU kernel held P, D and D^T in 16 MB of VMEM up to N = 768, 2F = 512,
+# on lane-aligned N.  Not limits of the CUDA kernels, which take any size.
+_LANE = 128
+_MAX_N = 768
+_MAX_M = 512
+
+
+def update_kernel_fits(N: int, M: int) -> bool:
+    """The JAX package's shape rule for the fused update: N % 128 == 0,
+    N <= 768 and M = 2F <= 512."""
+    return N % _LANE == 0 and N <= _MAX_N and M <= _MAX_M
+
+
+def update_kernel_applicable(P: torch.Tensor, HP: torch.Tensor) -> bool:
+    """Whether ``filter/update.update`` takes the fused update: a CUDA
+    float32 P whose shapes fit ``update_kernel_fits``."""
+    return (P.device.type == "cuda" and P.dtype == torch.float32
+            and update_kernel_fits(P.shape[0], HP.shape[0]))
+
 
 def update_plain(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
                  Sfull: torch.Tensor, uv: torch.Tensor, z: torch.Tensor,
                  use: torch.Tensor, pixel_error: float
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x', P') by the chain of filter/update.py, in P's dtype."""
+    """(x', P') by the chain of filter/update.py, in P's dtype, with S^-1
+    by Cholesky (all PyTorch, on any device)."""
     from openekfmonoslam_tpu_torch.filter.update import finalize_xp, kalman_xp
+    from openekfmonoslam_tpu_torch.ops.sinv import cholesky_inverse
 
-    xk, Pk = kalman_xp(P, x, HP, Sfull, uv, z, use, pixel_error)
+    xk, Pk = kalman_xp(P, x, HP, Sfull, uv, z, use, pixel_error,
+                       inverse=cholesky_inverse)
     return finalize_xp(Pk, xk, torch.any(use))
 
 

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
 the main path does not reach: ragged tiles, one slot, several blocks, an S
 too large for shared memory (the update's device-memory inverse), odd
-frame sizes and other STAR and BRIEF settings.  The filter kernels are
-held against float64; STAR and BRIEF must equal their float32 plain
-versions bit for bit.  ``chip_smoke.py`` checks the main path's shapes.
+frame sizes and other STAR and BRIEF settings, the S-inverse from M = 1 to
+640 and cond 1e2 to 1e6.  The filter kernels are held against float64;
+STAR and BRIEF must equal their float32 plain versions bit for bit.
+``chip_smoke.py`` checks the main path's shapes.
 
 These tests need a CUDA device and skip without one.  This module imports
 no JAX, so on a machine without it run them as
@@ -143,11 +144,98 @@ def test_init_kernel(dev, C):
         assert a.shape == b.shape and _err(a, b) <= tol
 
 
+def spd_cond(m, cond, seed=0):
+    """tests/test_sinv.py ``_spd``: eigenvalues geomspace(1, cond)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(m, m)))
+    s = (q * np.geomspace(1.0, cond, m)) @ q.T
+    return ((s + s.T) / 2).astype(np.float32)
+
+
+def masked_s(m, seed=1):
+    """tests/test_sinv.py's masked S: identity rows for unused slots."""
+    rng = np.random.default_rng(seed)
+    used = rng.random(m) < 0.6
+    h = rng.normal(size=(m, 30)) * 3.0
+    s = np.zeros((m, m), np.float32)
+    s[np.ix_(used, used)] = (h @ h.T)[np.ix_(used, used)]
+    s[np.diag_indices(m)] += 1.0
+    return s
+
+
+def _sinv_rel_err(x, s):
+    want = torch.linalg.inv(s.double())
+    return _err(x, want) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("M", [1, 7, 192, 336, 640])
+@pytest.mark.parametrize("cond", [1e2, 1e4, 1e6])
+def test_sinv_kernel(dev, M, cond):
+    """Relative error against the float64 inverse within the TPU kernel
+    test's bound, 3e-5 max(cond / 1e2, 1); the rescue branch runs at
+    cond >= 1e4 and not at 1e2 (for M >= 192)."""
+    S = _f32(spd_cond(M, cond), dev)
+    X, steps = sinv.sinv_cuda(S, 1.0)
+    torch.cuda.synchronize()
+    assert X.shape == (M, M) and bool(torch.isfinite(X).all())
+    assert _sinv_rel_err(X, S) <= 3e-5 * max(cond / 1e2, 1.0)
+    if M >= 192:
+        assert (int(steps) > 0) == (cond >= 1e4)
+
+
+@pytest.mark.parametrize("M", [192, 336])
+def test_sinv_kernel_masked_identity_rows(dev, M):
+    S = _f32(masked_s(M), dev)
+    X, steps = sinv.sinv_cuda(S, 1.0)
+    assert _sinv_rel_err(X, S) <= 1e-4
+    assert int(steps) > 0
+
+
+def test_spd_inverse_routes_large_s_to_cholesky(dev):
+    S = _f32(spd_cond(600, 1e2), dev)
+    sinv.LAUNCHES.reset()
+    X = sinv.spd_inverse(S, 1.0)
+    assert sinv.LAUNCHES.count == 0
+    assert _sinv_rel_err(X, S) <= 1e-4
+    sinv.spd_inverse(S[:336, :336].contiguous(), 1.0)
+    assert sinv.LAUNCHES.count == 1
+
+
+def test_update_chain_at_the_large_map(dev):
+    """N = 1024, 2F = 336: update() takes the chain with the S-inverse
+    kernel (no fused launch); both routes agree with float64."""
+    from openekfmonoslam_tpu_torch.filter import update as upd
+    F, N = 168, 1024
+    rng = np.random.default_rng(3)
+    P = _spd(rng, N)
+    H = rng.standard_normal((2 * F, N)) * 0.05
+    HP = H @ P
+    x = rng.standard_normal(N) * 0.1
+    q = rng.standard_normal(4)
+    x[3:7] = q / np.linalg.norm(q)
+    uv = rng.uniform(0, 600, (F, 2))
+    args = [_f32(a, dev) for a in (P, x, HP, HP @ H.T, uv,
+                                   uv + rng.standard_normal((F, 2)))]
+    use = torch.tensor(rng.uniform(size=F) < 0.6, device=dev)
+    assert not update_kernel.update_kernel_applicable(args[0], args[2])
+    x_t, P_t = update_kernel.update_plain(*[a.double() for a in args], use,
+                                          1.0)
+    sinv.LAUNCHES.reset()
+    update_kernel.LAUNCHES.reset()
+    x_c, P_c = upd.update_chain(*args, use, 1.0)
+    assert (sinv.LAUNCHES.count, update_kernel.LAUNCHES.count) == (1, 0)
+    x_f, P_f = update_kernel.joint_update(*args, use, 1.0)
+    for xk, Pk in ((x_c, P_c), (x_f, P_f)):
+        assert _err(xk, x_t) <= 5e-5 and _err(Pk, P_t) <= 5e-4
+
+
 def test_wrappers_refuse_float64_cuda_tensors(dev):
     P = torch.eye(20, dtype=torch.float64, device=dev)
     x = torch.zeros(20, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="float32"):
         predict_kernel.predict(P, x, 1.0, 1e-6, 1e-6)
+    with pytest.raises(ValueError, match="float32"):
+        sinv.sinv_cuda(P, 1.0)
 
 
 def _gray(rng, h, w, dev):

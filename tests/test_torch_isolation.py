@@ -23,7 +23,9 @@ def test_every_port_module_imports_without_jax():
         openekfmonoslam_tpu_torch.__path__, "openekfmonoslam_tpu_torch."))
     for name in ("engine.step", "engine.scan_runner", "vision.frontend",
                  "vision.star", "vision.brief", "ops.star_kernel",
-                 "ops.brief_kernel", "io.sources", "eval.replay"):
+                 "ops.brief_kernel", "io.sources", "eval.replay",
+                 "engine.engine", "engine.checkpoint", "eval.trajectory",
+                 "eval.result_reader", "cli", "ops.sinv"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

@@ -309,6 +309,9 @@ def test_cam_params_mirror_the_cuda_struct():
                        re.sub(r"\b(int|float)\b", "", body))
     assert names == [n for n, _ in cuda_lib.StarParams._fields_]
     assert f"#define STAR_MAX_SIZES {cuda_lib.STAR_MAX_SIZES}" in star_src
+    sinv_src = (Path(cuda_lib.CSRC) / "sinv.cu").read_text()
+    assert f"constexpr int TS = {sinv.TILE};" in sinv_src
+    assert f"constexpr int MAX_RESCUE = {sinv.MAX_RESCUE};" in sinv_src
     # one launcher per kernel module, every one declared for ctypes
     exported = set()
     for cu in Path(cuda_lib.CSRC).glob("*.cu"):

@@ -49,7 +49,8 @@ def main(frames: int = 60) -> int:
         wall = time.perf_counter() - t0
     # the step's phase ranges also appear on the device's timeline; they
     # span kernels and are not kernels themselves
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith(PHASE_PREFIX)]
     device_us = sum(e.self_device_time_total for e in events)
@@ -59,7 +60,7 @@ def main(frames: int = 60) -> int:
     print(f"{frames} frames: host wall {wall_ms:.4f} ms/frame, device "
           f"{dev_ms:.4f} ms/frame summed over kernels, idle share "
           f"{1 - dev_ms / wall_ms:.4f}")
-    phases = chip_smoke.phase_times(prof, frames)
+    phases = chip_smoke.phase_times(averages, frames)
     print("phases (host ms/frame, device ms/frame of PyTorch's kernels):")
     for name, t in phases.items():
         print(f"  {t['host_ms']:10.4f} {t['device_ms']:10.4f}  {name}")

@@ -53,17 +53,38 @@ Phases, each of which passes or raises (the script then exits non-zero):
               frame 100 which a fresh engine resumes to the end (records
               bit for bit), the S-inverse on a kept frame's own S against
               float64, and the live log replayed on the CPU in float64.
+  7. parity   the bug-compatible parity mode (reference_quirks and
+              ransac_parity_visit, max_hypotheses 1000): phase 3's log
+              replayed on the card with every launch counter set to 0 just
+              before and read just after (2 quirks-variant measure and 2
+              S-inverse launches a step, no fused update, 0 host syncs),
+              then its first 40 frames under the profiler, and the visit
+              scan alone; the same log on the CPU in float64
+              through the port's quirks path (1e-5 m a frame, masks equal
+              on 99% of frames) and through the bug-compatible oracle
+              (eval/oracle.py, ATE < 1e-5 path + 1e-7); then
+              SlamEngine("config.yml", reference_quirks=True,
+              ransac_parity_visit=True) on the s3 map (F = 96) over 101
+              live frames: the same launch rules with STAR and BRIEF once a
+              frame, at most 2 host syncs a frame, healthy tracking, 40
+              steps under the profiler, and its live log replayed in
+              float64 (1e-4 m, masks 95%).
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
 (bit for bit) on a textured 640x480 frame and on an odd 483x645 one, the
 S-inverse kernel at M = 192, 336, 512 and 640 (cond 1e2, 1e3, 1e4, and
-the update's masked S at M = 336) against float64, and the fused update
-against the chain with the S-inverse kernel at N = 1024, 2F = 336.
+the update's masked S at M = 336) against float64, the fused update
+against the chain with the S-inverse kernel at N = 1024, 2F = 336, the
+measure kernel's quirks variant against the float64 plain quirks chain,
+and the blocked Cholesky solve at (M, K) from (1, 1) to (512, 640) against
+the float64 solve (timed at (192, 640) and (336, 1024), beside
+torch.linalg.solve).
 
 The line before the last is one JSON object with a row per kernel (its
 launches from its path: phase 5 for the six kernels of the s3 live path,
-phase 6 for the S-inverse; the S-inverse's times and bound are on a kept
-frame's S of phase 6).  The last line
+phase 6 for the S-inverse, phase 7's engine for the measure kernel's
+quirks variant; the Cholesky solve has no path; the S-inverse's times and
+bound are on a kept frame's S of phase 6).  The last line
 is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -94,17 +115,19 @@ from openekfmonoslam_tpu_torch.engine import step as step_mod
 from openekfmonoslam_tpu_torch.engine.engine import SlamEngine, run_sequence
 from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
                                                    PHASE_PREFIX, SlamRuntime)
-from openekfmonoslam_tpu_torch.eval import replay
+from openekfmonoslam_tpu_torch.eval import oracle, replay
+from openekfmonoslam_tpu_torch.eval.trajectory import ate_rmse
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
 from openekfmonoslam_tpu_torch.filter import measure as meas_mod
 from openekfmonoslam_tpu_torch.filter import predict as pred_mod
+from openekfmonoslam_tpu_torch.filter import ransac as ransac_mod
 from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import dim_active_mask
 from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
-from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
-                                           init_kernel, measure_kernel,
-                                           predict_kernel, sinv, star_kernel,
-                                           update_kernel)
+from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
+                                           cuda_lib, init_kernel,
+                                           measure_kernel, predict_kernel,
+                                           sinv, star_kernel, update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 ROOT = Path(__file__).resolve().parent
@@ -116,32 +139,47 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 
 KERNELS = {
-    "predict": dict(module=predict_kernel,
+    "predict": dict(counter=predict_kernel.LAUNCHES,
                     source="openekfmonoslam_tpu_torch/csrc/predict.cu",
                     replaces="openekfmonoslam_tpu/ops/predict_kernel.py:48"),
-    "measure": dict(module=measure_kernel,
+    "measure": dict(counter=measure_kernel.LAUNCHES,
                     source="openekfmonoslam_tpu_torch/csrc/measure.cu",
                     replaces="openekfmonoslam_tpu/ops/measure_kernel.py:44"),
-    "update": dict(module=update_kernel,
+    # the QUIRKS instantiation of the same kernel (quirks=True, :115-131)
+    "measure_quirks": dict(
+        counter=measure_kernel.QUIRKS_LAUNCHES,
+        source="openekfmonoslam_tpu_torch/csrc/measure.cu",
+        replaces="openekfmonoslam_tpu/ops/measure_kernel.py:44"),
+    "update": dict(counter=update_kernel.LAUNCHES,
                    source="openekfmonoslam_tpu_torch/csrc/update.cu",
                    replaces="openekfmonoslam_tpu/ops/update_kernel.py:73"),
-    "init": dict(module=init_kernel,
+    "init": dict(counter=init_kernel.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/init.cu",
                  replaces="openekfmonoslam_tpu/ops/init_kernel.py:48"),
     # _resp_kernel (:45) and _score_kernel (:69)
-    "star": dict(module=star_kernel,
+    "star": dict(counter=star_kernel.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/star.cu",
                  replaces="openekfmonoslam_tpu/ops/star_kernel.py:45"),
-    "brief": dict(module=brief_kernel,
+    "brief": dict(counter=brief_kernel.LAUNCHES,
                   source="openekfmonoslam_tpu_torch/csrc/brief.cu",
                   replaces="openekfmonoslam_tpu/ops/brief_kernel.py:43"),
-    "sinv": dict(module=sinv,
+    "sinv": dict(counter=sinv.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/sinv.cu",
                  replaces="openekfmonoslam_tpu/ops/sinv.py:169"),
+    # no path: as in the JAX package, no engine path calls solve_spd
+    "cholsolve": dict(counter=cholsolve.LAUNCHES,
+                      source="openekfmonoslam_tpu_torch/csrc/cholsolve.cu",
+                      replaces="openekfmonoslam_tpu/ops/cholsolve.py:102"),
 }
-# the kernels the s3 live path (phase 5) runs; the S-inverse runs on the
-# large map (phase 6)
-S3_KERNELS = ("predict", "measure", "update", "init", "star", "brief")
+
+
+def reset_launches() -> None:
+    for spec in KERNELS.values():
+        spec["counter"].reset()
+
+
+def read_launches() -> dict:
+    return {name: spec["counter"].count for name, spec in KERNELS.items()}
 
 T_FRAMES = 220          # frames of the replay path (>= 200)
 T_LIVE = 201            # frames of the live path: init_step + 200 steps
@@ -157,6 +195,8 @@ TOL = {
     "update_x": 5e-5, "update_P": 5e-4, "update_sym": 1e-5,
     "sinv_rel": 1e-4,
     "init_feats": 1e-5, "init_J1": 2e-2, "init_J2": 1e-4,
+    # tests/test_cholsolve.py:32 on A A^T + 10 I; 1e-6 cond on spd_cond
+    "chol_rel": 1e-4,
 }
 # float32 card trajectory vs the float64 CPU replay of the same log: the
 # camera-position deviation on every frame (metres; about ten times the
@@ -175,6 +215,16 @@ LARGE_F, LARGE_N = 168, 1024
 # the engine's summary fetch and the read of phase_mapman
 LARGE_SYNCS_PER_FRAME = 2.0
 LARGE_CKPT_AT = 100           # the frame whose checkpoint is resumed
+# the parity mode (phase 7): the reference's bug-compatible filter
+PARITY = dict(reference_quirks=True, ransac_parity_visit=True)
+T_PARITY_LIVE = 101           # the parity engine: init + 100 steps
+# frames of phase 7's runs under the profiler (its cost grows with the
+# frames traced: about half a second a frame)
+PARITY_PROFILED = 40
+# the bug-compatible oracle is plain NumPy: it replays the log until this
+# many seconds have gone, and then stops once it has done ORACLE_MIN_FRAMES
+ORACLE_BUDGET_S = 120.0
+ORACLE_MIN_FRAMES = 100
 
 
 class PhaseError(RuntimeError):
@@ -517,6 +567,36 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
         plain=lambda: measure_kernel.measure_plain(camera, cam7, feats,
                                                    is_xyz, active))
 
+    # ---- measure, the quirks variant (the parity mode's), on the same slots
+    got = measure_kernel.measure(camera, cam7, feats, is_xyz, active,
+                                 quirks=True)
+    ref = measure_kernel.measure_plain(camera, cam7.double(), feats.double(),
+                                       is_xyz, active, quirks=True)
+    check(failures, torch.equal(got[3], ref[3]),
+          "measure_quirks visibility equal")
+    err = 0.0
+    for name, a, b in zip(("uv", "Hc7", "Hf"), ref[:3], got[:3]):
+        a, b = a[m], b[m].double()
+        lim = TOL["measure_rtol"] * (a.abs() + max(float(a.abs().max()), 1.0))
+        worst = float(((b - a).abs() / lim).max())
+        err = max(err, max_abs(a, b))
+        check(failures, worst <= 1.0,
+              f"measure_quirks {name} within rtol 1e-6 of the float64 quirks "
+              f"chain (worst {worst:.3f} of the bound, abs err "
+              f"{max_abs(a, b):.3e})")
+    correct = measure_kernel.measure_plain(camera, cam7.double(),
+                                           feats.double(), is_xyz, active)
+    check(failures, max_abs(ref[1][m], correct[1][m]) > 1e-6,
+          "the quirks chain differs from the correct math (Hc7 by "
+          f"{max_abs(ref[1][m], correct[1][m]):.3e})")
+    rows["measure_quirks"] = dict(
+        rows["measure"], max_abs_err=err,
+        kernel=lambda: measure_kernel.measure(camera, cam7, feats, is_xyz,
+                                              active, quirks=True),
+        plain=lambda: measure_kernel.measure_plain(camera, cam7, feats,
+                                                   is_xyz, active,
+                                                   quirks=True))
+
     # ---- update
     pe = cfg.camera.pixel_error_x
     prob = _update_problem(rng, N, F, 0.6)
@@ -602,6 +682,38 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
     S336 = torch.tensor(spd_cond(336, 1e2), **f32)
     rows["sinv_spd336"] = sinv_row(S336, 1.0, max(
         c["abs_err"] for c in sinv_checks if c["M"] == 336))
+
+    # ---- cholsolve: X = S^-1 B against the float64 solve (its own
+    # generator, so the inputs of the checks after it stay as they were)
+    crng = np.random.default_rng(5)
+    chol_checks = []
+    for m_, k_ in CHOL_SHAPES:
+        B_ = torch.tensor(crng.normal(size=(m_, k_)), **f32)
+        cases = [("A A^T + 10 I", spd_plus(crng, m_), TOL["chol_rel"])] + [
+            (f"cond {c:.0e}", spd_cond(m_, c), 1e-6 * c)
+            for c in CHOL_CONDS]
+        for tag, s_np, limit in cases:
+            S_ = torch.tensor(s_np, **f32)
+            rel = chol_rel_err(cholsolve.chol_solve_cuda(S_, B_), S_, B_)
+            chol_checks.append(dict(M=m_, K=k_, case=tag, rel_err=rel))
+            check(failures, rel <= limit,
+                  f"cholsolve[M {m_}, K {k_}, {tag}] rel err {rel:.3e} <= "
+                  f"{limit:.1e}")
+    for m_, k_ in CHOL_TIMED:
+        S_ = torch.tensor(spd_plus(crng, m_), **f32)
+        B_ = torch.tensor(crng.normal(size=(m_, k_)), **f32)
+        rows[f"cholsolve_{m_}x{k_}"] = dict(
+            max_abs_err=max_abs(cholsolve.chol_solve_cuda(S_, B_),
+                                torch.linalg.solve(S_.double(),
+                                                   B_.double())),
+            M=m_, K=k_, bytes=4 * (m_ * m_ + 2 * m_ * k_),
+            flops=m_ ** 3 / 3 + 2 * m_ * m_ * k_,
+            kernel=lambda S_=S_, B_=B_: cholsolve.chol_solve_cuda(S_, B_),
+            plain=lambda S_=S_, B_=B_: cholsolve.chol_solve_plain(S_, B_),
+            library=lambda S_=S_, B_=B_: torch.linalg.solve(S_, B_))
+    rows["cholsolve"] = rows.pop(f"cholsolve_{CHOL_TIMED[0][0]}x"
+                                 f"{CHOL_TIMED[0][1]}")
+    rows["cholsolve"]["checks"] = chol_checks
 
     # ---- the fused update against the chain with the S-inverse kernel
     # on one problem at the large map's N = 1024, 2F = 336
@@ -717,6 +829,27 @@ def sinv_row(S: torch.Tensor, lam_floor: float, err: float) -> dict:
         kernel=lambda: sinv.sinv_cuda(S, lam_floor),
         plain=lambda: sinv.ns_inverse(S, lam_floor),
         library=lambda: torch.linalg.inv(S))
+
+
+# ---------------------------------------------------- the Cholesky solve
+
+CHOL_SHAPES = ((1, 1), (48, 200), (64, 128), (192, 640), (336, 1024),
+               (512, 640))
+CHOL_CONDS = (1e2, 1e3, 1e4)
+# the s3 update's S^-1 (H P) shape first (the kernel table's row), then
+# the large map's
+CHOL_TIMED = ((192, 640), (336, 1024))
+
+
+def spd_plus(rng, m: int, scale: float = 10.0) -> np.ndarray:
+    """tests/test_cholsolve.py's ``_spd``: A A^T + scale I."""
+    A = rng.normal(size=(m, m)).astype(np.float32)
+    return A @ A.T + scale * np.eye(m, dtype=np.float32)
+
+
+def chol_rel_err(X: torch.Tensor, S: torch.Tensor, B: torch.Tensor) -> float:
+    want = torch.linalg.solve(S.double(), B.double())
+    return max_abs(X, want) / float(want.abs().max())
 
 
 # ----------------------------------------------------------------- phase 3
@@ -880,14 +1013,12 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
     # every launch counter at 0 just before and read just after
     ulog = replay.upload_log(runtime, log)
     torch.cuda.synchronize()
-    for spec in KERNELS.values():
-        spec["module"].LAUNCHES.reset()
+    reset_launches()
     t0 = time.perf_counter()
     state, records = replay.run_uploaded(runtime, ulog)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: spec["module"].LAUNCHES.count
-                for name, spec in KERNELS.items()}
+    launches = read_launches()
     fps = T_FRAMES / elapsed
     print(f"  main path: {T_FRAMES} frames in {elapsed:.4f} s = "
           f"{fps:.2f} frames/s (bootstrap included)", flush=True)
@@ -916,6 +1047,8 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
     T = T_FRAMES
     check(failures, launches["predict"] == T, f"predict launches {T}")
     check(failures, launches["measure"] == 2 * T, f"measure launches {2 * T}")
+    check(failures, launches["measure_quirks"] == 0,
+          "no launch of the measure kernel's quirks variant")
     check(failures, launches["update"] == 2 * T, f"update launches {2 * T}")
     check(failures, launches["sinv"] == 0, "no S-inverse launch")
     check(failures, launches["init"] >= 1, "init launched at least once")
@@ -947,6 +1080,26 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
 
 # ----------------------------------------------------------------- phase 4
 
+def against_float64(card_x, card_inliers, card_visible, recs64) -> dict:
+    """The card's trajectory and masks against a float64 CPU replay's
+    records: camera-position deviation a frame, the share of frames whose
+    inlier and visibility masks are identical."""
+    ref = np.stack([r.x_cam.numpy() for r in recs64])
+    dev = np.linalg.norm(np.asarray(card_x)[:, 0:3].astype(np.float64)
+                         - ref[:, 0:3], axis=1)
+    same_inl = float(np.mean([
+        np.array_equal(np.asarray(a), b.inliers.numpy())
+        for a, b in zip(card_inliers, recs64)]))
+    same_vis = float(np.mean([
+        np.array_equal(np.asarray(a), b.visible.numpy())
+        for a, b in zip(card_visible, recs64)]))
+    worst = int(np.argmax(dev))
+    return dict(dev_max=float(dev.max()), dev_mean=float(dev.mean()),
+                dev_final=float(dev[-1]), worst_frame=worst + 1,
+                inliers_same=same_inl, visible_same=same_vis,
+                dev_per_frame=dev.tolist())
+
+
 def phase_replay(path: dict, failures: list) -> dict:
     print("== phase 4: float64 CPU replay", flush=True)
     cfg64 = SlamConfig(dtype="float64")
@@ -954,37 +1107,28 @@ def phase_replay(path: dict, failures: list) -> dict:
     t0 = time.perf_counter()
     _, recs64 = replay.replay_records(rt64, path["log"])
     cpu_s = time.perf_counter() - t0
-    gpu = np.stack([r.x_cam.double().cpu().numpy()
-                    for r in path["records"]])
-    ref = np.stack([r.x_cam.numpy() for r in recs64])
+    recs = path["records"]
+    agree = against_float64(
+        np.stack([r.x_cam.double().cpu().numpy() for r in recs]),
+        [r.inliers.cpu().numpy() for r in recs],
+        [r.visible.cpu().numpy() for r in recs], recs64)
     sigma = np.array([math.sqrt(max(float(torch.trace(r.P_cam[0:3, 0:3])),
                                     0.0)) for r in recs64])
-    dev = np.linalg.norm(gpu[:, 0:3] - ref[:, 0:3], axis=1)
-    same_inliers = np.array([
-        bool(torch.equal(a.inliers.cpu(), b.inliers))
-        for a, b in zip(path["records"], recs64)])
-    same_visible = np.array([
-        bool(torch.equal(a.visible.cpu(), b.visible))
-        for a, b in zip(path["records"], recs64)])
-    worst = int(np.argmax(dev))
     print(f"  CPU float64 replay {cpu_s:.1f} s; camera-position deviation "
-          f"max {dev.max():.3e}, mean {dev.mean():.3e}, final {dev[-1]:.3e}"
-          f"; f64 sigma_r final {sigma[-1]:.3e}", flush=True)
-    print(f"  inlier masks identical on {same_inliers.mean():.3f} of frames, "
-          f"visibility on {same_visible.mean():.3f}", flush=True)
-    check(failures, bool((dev <= REPLAY_TOL).all()),
+          f"max {agree['dev_max']:.3e}, mean {agree['dev_mean']:.3e}, final "
+          f"{agree['dev_final']:.3e}; f64 sigma_r final {sigma[-1]:.3e}",
+          flush=True)
+    print(f"  inlier masks identical on {agree['inliers_same']:.3f} of "
+          f"frames, visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= REPLAY_TOL,
           f"deviation <= {REPLAY_TOL} on every frame (worst frame "
-          f"{worst + 1}: {dev[worst]:.3e})")
-    check(failures, same_inliers.mean() >= REPLAY_MASKS_SAME,
+          f"{agree['worst_frame']}: {agree['dev_max']:.3e})")
+    check(failures, agree["inliers_same"] >= REPLAY_MASKS_SAME,
           f"inlier masks identical on >= {REPLAY_MASKS_SAME} of frames")
-    check(failures, same_visible.mean() >= REPLAY_MASKS_SAME,
+    check(failures, agree["visible_same"] >= REPLAY_MASKS_SAME,
           f"visibility masks identical on >= {REPLAY_MASKS_SAME} of frames")
-    return dict(cpu_s=cpu_s, dev_max=float(dev.max()),
-                dev_mean=float(dev.mean()), dev_final=float(dev[-1]),
-                sigma_final=float(sigma[-1]),
-                inliers_same=float(same_inliers.mean()),
-                visible_same=float(same_visible.mean()),
-                dev_per_frame=dev.tolist(), sigma_per_frame=sigma.tolist())
+    return dict(cpu_s=cpu_s, sigma_final=float(sigma[-1]),
+                sigma_per_frame=sigma.tolist(), **agree)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1017,14 +1161,12 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     torch.cuda.synchronize()
 
     # the main path: every launch counter at 0 just before, read just after
-    for spec in KERNELS.values():
-        spec["module"].LAUNCHES.reset()
+    reset_launches()
     t0 = time.perf_counter()
     state, recs = scan_runner.run_sequence_on_device(runtime, frames)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: spec["module"].LAUNCHES.count
-                for name, spec in KERNELS.items()}
+    launches = read_launches()
     # the same run again, for the host's run-to-run spread
     t0 = time.perf_counter()
     scan_runner.run_sequence_on_device(runtime, frames)
@@ -1041,6 +1183,8 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
           f"({T})")
     check(failures, launches["predict"] == S, f"predict launches {S}")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
+    check(failures, launches["measure_quirks"] == 0,
+          "no launch of the measure kernel's quirks variant")
     check(failures, launches["update"] == 2 * S, f"update launches {2 * S}")
     check(failures, launches["sinv"] == 0,
           "no S-inverse launch on the s3 map (the fused update applies)")
@@ -1099,29 +1243,23 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     t0 = time.perf_counter()
     _, recs64 = replay.replay_records(rt64, log)
     cpu_s = time.perf_counter() - t0
-    ref = np.stack([r.x_cam.numpy() for r in recs64])
-    dev = np.linalg.norm(card.x_cam[:, 0:3].astype(np.float64)
-                         - ref[:, 0:3], axis=1)
-    same_inl = np.mean([np.array_equal(a, b.inliers.numpy())
-                        for a, b in zip(card.inliers, recs64)])
-    same_vis = np.mean([np.array_equal(a, b.visible.numpy())
-                        for a, b in zip(card.visible, recs64)])
+    agree = against_float64(card.x_cam, card.inliers, card.visible, recs64)
     same_rec = float(np.abs(card.x_cam - recs.x_cam).max())
-    worst = int(np.argmax(dev))
     print(f"  live log: {len(log['init'])} bootstrap features, "
           f"{sum(len(f['new']) for f in log['frames'])} additions; its "
           f"run vs the main run: max |x_cam| difference {same_rec:.3e}",
           flush=True)
     print(f"  float64 CPU replay of the live log {cpu_s:.1f} s: "
-          f"camera-position deviation max {dev.max():.3e} (frame "
-          f"{worst + 1}), mean {dev.mean():.3e}, final {dev[-1]:.3e}; "
-          f"inlier masks identical on {same_inl:.3f} of frames, "
-          f"visibility on {same_vis:.3f}", flush=True)
-    check(failures, bool((dev <= LIVE_REPLAY_TOL).all()),
+          f"camera-position deviation max {agree['dev_max']:.3e} (frame "
+          f"{agree['worst_frame']}), mean {agree['dev_mean']:.3e}, final "
+          f"{agree['dev_final']:.3e}; inlier masks identical on "
+          f"{agree['inliers_same']:.3f} of frames, visibility on "
+          f"{agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
           f"live replay deviation <= {LIVE_REPLAY_TOL} on every frame "
-          f"(worst {dev[worst]:.3e})")
-    check(failures, same_inl >= LIVE_MASKS_SAME
-          and same_vis >= LIVE_MASKS_SAME,
+          f"(worst {agree['dev_max']:.3e})")
+    check(failures, agree["inliers_same"] >= LIVE_MASKS_SAME
+          and agree["visible_same"] >= LIVE_MASKS_SAME,
           f"live replay masks identical on >= {LIVE_MASKS_SAME} of frames")
     return dict(launches=launches, fps=fps, elapsed_s=elapsed,
                 fps_again=T / elapsed_again,
@@ -1135,13 +1273,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                 mid_frame=dict(star_err=mid["star_err"],
                                brief_bits=mid["brief_bits"],
                                peaks=mid["peaks"]),
-                replay=dict(cpu_s=cpu_s, dev_max=float(dev.max()),
-                            dev_mean=float(dev.mean()),
-                            dev_final=float(dev[-1]),
-                            inliers_same=float(same_inl),
-                            visible_same=float(same_vis),
-                            log_run_vs_main=same_rec,
-                            dev_per_frame=dev.tolist()))
+                replay=dict(cpu_s=cpu_s, log_run_vs_main=same_rec, **agree))
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1215,14 +1347,12 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     torch.cuda.synchronize()
 
     # the main path: every launch counter at 0 just before, read just after
-    for spec in KERNELS.values():
-        spec["module"].LAUNCHES.reset()
+    reset_launches()
     t0 = time.perf_counter()
     records = run_sequence(engine, frames)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: spec["module"].LAUNCHES.count
-                for name, spec in KERNELS.items()}
+    launches = read_launches()
     engine.close()
     fps = T / elapsed
     print(f"  main path: run_sequence over {T} frames in {elapsed:.4f} s = "
@@ -1235,6 +1365,8 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
           f"fused update launches {launches['update']} == 0")
     check(failures, launches["predict"] == S, f"predict launches {S}")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
+    check(failures, launches["measure_quirks"] == 0,
+          "no launch of the measure kernel's quirks variant")
     check(failures, launches["star"] == T and launches["brief"] == T,
           f"star and brief launched once a frame plus once for init ({T})")
     check(failures, 1 <= launches["init"] <= T,
@@ -1331,27 +1463,21 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     t0 = time.perf_counter()
     _, recs64 = replay.replay_records(rt64, log)
     cpu_s = time.perf_counter() - t0
-    ref = np.stack([r.x_cam.numpy() for r in recs64])
-    dev = np.linalg.norm(card.x_cam[:, 0:3].astype(np.float64)
-                         - ref[:, 0:3], axis=1)
-    same_inl = np.mean([np.array_equal(a, b.inliers.numpy())
-                        for a, b in zip(card.inliers, recs64)])
-    same_vis = np.mean([np.array_equal(a, b.visible.numpy())
-                        for a, b in zip(card.visible, recs64)])
-    worst = int(np.argmax(dev))
+    agree = against_float64(card.x_cam, card.inliers, card.visible, recs64)
     print(f"  live log: {len(log['init'])} bootstrap features, "
           f"{sum(len(f['new']) for f in log['frames'])} additions; its run "
           f"vs the engine's: max |position| difference {log_vs_main:.3e}",
           flush=True)
     print(f"  float64 CPU replay {cpu_s:.1f} s: camera-position deviation "
-          f"max {dev.max():.3e} (frame {worst + 1}), mean {dev.mean():.3e}, "
-          f"final {dev[-1]:.3e}; inlier masks identical on {same_inl:.3f} "
-          f"of frames, visibility on {same_vis:.3f}", flush=True)
-    check(failures, bool((dev <= LIVE_REPLAY_TOL).all()),
+          f"max {agree['dev_max']:.3e} (frame {agree['worst_frame']}), mean "
+          f"{agree['dev_mean']:.3e}, final {agree['dev_final']:.3e}; inlier "
+          f"masks identical on {agree['inliers_same']:.3f} of frames, "
+          f"visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
           f"large-map replay deviation <= {LIVE_REPLAY_TOL} on every frame "
-          f"(worst {dev[worst]:.3e})")
-    check(failures, same_inl >= LIVE_MASKS_SAME
-          and same_vis >= LIVE_MASKS_SAME,
+          f"(worst {agree['dev_max']:.3e})")
+    check(failures, agree["inliers_same"] >= LIVE_MASKS_SAME
+          and agree["visible_same"] >= LIVE_MASKS_SAME,
           f"large-map replay masks identical on >= {LIVE_MASKS_SAME} of "
           "frames")
 
@@ -1378,14 +1504,291 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
                 max_active=int(active.max()),
                 profiled_vs_main=same_run,
                 resume=dict(identical=identical, max_diff=resume_diff),
-                replay=dict(cpu_s=cpu_s, dev_max=float(dev.max()),
-                            dev_mean=float(dev.mean()),
-                            dev_final=float(dev[-1]),
-                            inliers_same=float(same_inl),
-                            visible_same=float(same_vis),
-                            log_run_vs_main=log_vs_main,
-                            dev_per_frame=dev.tolist()),
+                replay=dict(cpu_s=cpu_s, log_run_vs_main=log_vs_main,
+                            **agree),
                 sinv_row=row)
+
+
+# ----------------------------------------------------------------- phase 7
+
+def oracle_prefix(cfg64: SlamConfig, log: dict) -> tuple:
+    """The log through the port's bug-compatible oracle (OracleQuirks()),
+    frame by frame, stopping after ORACLE_BUDGET_S once ORACLE_MIN_FRAMES
+    are done; returns (oracle, frames replayed, seconds)."""
+    orc = oracle.ReferenceOracle(cfg64, oracle.OracleQuirks())
+    orc.init_with_features(log["init"])
+    t0 = time.perf_counter()
+    for k, fr in enumerate(log["frames"]):
+        orc.step_injected(fr["z"], fr["matched"], fr.get("new", ()))
+        if (time.perf_counter() - t0 > ORACLE_BUDGET_S
+                and k + 1 >= ORACLE_MIN_FRAMES):
+            break
+    return orc, len(orc.trajectory), time.perf_counter() - t0
+
+
+def check_parity_launches(failures, launches: dict, steps: int,
+                          frames: int | None = None) -> None:
+    """The parity mode's kernels: the quirks variant of measure twice a
+    step, the S-inverse twice a step (every update takes the chain), no
+    fused update and no correct-math measure; with ``frames``, the live
+    path's STAR and BRIEF once a frame."""
+    S = steps
+    check(failures, launches["measure_quirks"] == 2 * S,
+          f"measure quirks-variant launches {launches['measure_quirks']} == "
+          f"{2 * S}")
+    check(failures, launches["measure"] == 0,
+          f"correct-math measure launches {launches['measure']} == 0")
+    check(failures, launches["sinv"] == 2 * S,
+          f"S-inverse launches {launches['sinv']} == {2 * S}")
+    check(failures, launches["update"] == 0,
+          f"fused update launches {launches['update']} == 0")
+    check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["init"] >= 1,
+          f"init launched on add frames ({launches['init']})")
+    if frames is not None:
+        check(failures, launches["star"] == frames
+              and launches["brief"] == frames,
+              f"star and brief launched once a frame plus once for init "
+              f"({frames})")
+
+
+def visit_scan_cost(F: int, p: float, dev, reps: int = 50) -> dict:
+    """The parity RANSAC's visit scan alone at F slots: its device kernels'
+    time a call (under the profiler) and its host time a call (wall clock
+    over ``reps`` eager calls, ending in a synchronize)."""
+    rng = np.random.default_rng(3)
+    sup = torch.tensor(rng.integers(0, 60, F), dtype=torch.int32, device=dev)
+    mt = torch.tensor(rng.random(F) < 0.7, device=dev)
+
+    def scan():
+        return ransac_mod._adaptive_visit_scan(sup, mt, p, 1000)
+
+    for _ in range(5):
+        scan()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        scan()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            scan()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(host_us=host_us,
+                device_us=sum(e.device_time_total for e in kernels) / reps,
+                kernels=sum(e.count for e in kernels) / reps)
+
+
+def phase_parity(cfg: SlamConfig, path: dict, failures: list) -> dict:
+    """The parity mode on the card: phase 3's log replayed with the
+    reference's quirks and adaptive visit, then SlamEngine in parity mode
+    on the live frames."""
+    print("== phase 7: the parity mode", flush=True)
+    qcfg = dataclasses.replace(cfg, max_hypotheses=1000, **PARITY)
+    runtime = SlamRuntime(qcfg)
+    log = path["log"]
+    T = len(log["frames"])
+    F = qcfg.max_features
+    print(f"  SlamConfig(reference_quirks, ransac_parity_visit, "
+          f"max_hypotheses 1000): F = {F}, N = {qcfg.padded_state_dim}, "
+          f"{qcfg.dtype}; phase 3's log, {T} frames", flush=True)
+    ulog = replay.upload_log(runtime, log)
+    torch.cuda.synchronize()
+
+    # the replay path, counts at 0 just before and read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    state, records = replay.run_uploaded(runtime, ulog)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    fps = T / elapsed
+    print(f"  replay: {T} frames in {elapsed:.4f} s = {fps:.2f} frames/s "
+          f"(bootstrap included)", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    check_parity_launches(failures, launches, T)
+    check(failures, bool(torch.isfinite(state.x).all())
+          and bool(torch.isfinite(state.P).all()), "final x and P finite")
+    sites, sync_s = count_syncs(lambda: replay.run_uploaded(runtime, ulog))
+    syncs = sum(sites.values())
+    print(f"  sync debug run: {T / sync_s:.2f} frames/s, {syncs} host syncs: "
+          f"{dict(sites)}", flush=True)
+    check(failures, syncs == 0, f"0 host syncs a frame ({syncs} in {T})")
+    # the first PARITY_PROFILED frames under the profiler
+    K = min(PARITY_PROFILED, T)
+    head = ulog._replace(z=ulog.z[:K], matched=ulog.matched[:K],
+                         new_uv=ulog.new_uv[:K], new_valid=ulog.new_valid[:K],
+                         new_slot=ulog.new_slot[:K])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay.run_uploaded(runtime, head)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, K)
+    kernel_us = kernel_device_us(averages, K, ("sinv_ns",
+                                               "measure_kernel<true>"))
+    print(f"  per-phase ms/frame under the profiler over {K} frames (host, "
+          "device of PyTorch's kernels): "
+          + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+                      for k, v in phase_ms.items()), flush=True)
+    print("  hand-written kernels under the profiler (us a frame, calls a "
+          "frame): " + ", ".join(
+              f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
+              for k, v in kernel_us.items()), flush=True)
+    scan = visit_scan_cost(F, qcfg.ekf.ransac_all_inliers_probability,
+                           state.x.device)
+    print(f"  the visit scan alone at F = {F}: {scan['device_us']:.2f} us "
+          f"of device kernels ({scan['kernels']:.0f} launches) and "
+          f"{scan['host_us']:.2f} us of host time a call", flush=True)
+
+    # the same log on the CPU in float64 through the port's quirks path,
+    # and through the bug-compatible oracle
+    q64 = dataclasses.replace(qcfg, dtype="float64")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(SlamRuntime(q64, device="cpu"), log)
+    cpu_s = time.perf_counter() - t0
+    agree = against_float64(
+        np.stack([r.x_cam.double().cpu().numpy() for r in records]),
+        [r.inliers.cpu().numpy() for r in records],
+        [r.visible.cpu().numpy() for r in records], recs64)
+    print(f"  float64 CPU replay (quirks path) {cpu_s:.1f} s: camera-"
+          f"position deviation max {agree['dev_max']:.3e} (frame "
+          f"{agree['worst_frame']}), mean {agree['dev_mean']:.3e}; inlier "
+          f"masks identical on {agree['inliers_same']:.3f} of frames, "
+          f"visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= REPLAY_TOL,
+          f"deviation <= {REPLAY_TOL} on every frame")
+    check(failures, agree["inliers_same"] >= REPLAY_MASKS_SAME
+          and agree["visible_same"] >= REPLAY_MASKS_SAME,
+          f"masks identical on >= {REPLAY_MASKS_SAME} of frames")
+    orc, n_orc, orc_s = oracle_prefix(q64, log)
+    ref = np.stack(orc.trajectory)
+    cpu = np.stack([r.x_cam.numpy() for r in recs64[:n_orc]])
+    path_len = float(np.sum(np.linalg.norm(np.diff(ref[:, 0:3], axis=0),
+                                           axis=1)))
+    ate = ate_rmse(cpu[:, 0:3], ref[:, 0:3], align=False)
+    bound = 1e-5 * max(path_len, 1e-3) + 1e-7
+    print(f"  oracle (OracleQuirks()): {n_orc} of {T} frames in {orc_s:.1f} "
+          f"s, slot_collisions {orc.slot_collisions}; float64 quirks "
+          f"replay vs oracle ATE {ate:.3e} over path {path_len:.4f} m "
+          f"(bound {bound:.3e})", flush=True)
+    check(failures, ate < bound, f"ATE vs the oracle {ate:.3e} < {bound:.3e}")
+    replay_part = dict(
+        fps=fps, elapsed_s=elapsed, launches=launches, syncs=syncs,
+        sync_sites=dict(sites), fps_sync_debug=T / sync_s,
+        profiled_frames=K, phase_ms=phase_ms, kernels_us=kernel_us,
+        visit_scan=scan, cpu_s=cpu_s,
+        float64=agree,
+        oracle=dict(frames=n_orc, seconds=orc_s, ate=ate, path=path_len,
+                    bound=bound, slot_collisions=orc.slot_collisions))
+    return dict(replay=replay_part,
+                engine=parity_engine(failures))
+
+
+def parity_engine(failures: list, T: int = T_PARITY_LIVE) -> dict:
+    """SlamEngine from the s3 config file (no MaxMapSize: F = 96) with the
+    parity flags, over the live frames."""
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "parity_config.yml"
+    path.write_text(LARGE_MAP_CONFIG.replace('    MaxMapSize: "960"\n', ""))
+    frames = live_frames(T)
+    S = T - 1
+    engine = SlamEngine(str(path), **PARITY)
+    cfg = engine.config
+    print(f"  SlamEngine(config.yml, reference_quirks, ransac_parity_visit):"
+          f" F = {cfg.max_features}, N = {cfg.padded_state_dim}, "
+          f"max_hypotheses {cfg.max_hypotheses}, {cfg.dtype}; {T} frames",
+          flush=True)
+    check(failures, cfg.max_features == 96, "F = 96 (the s3 map)")
+    run_sequence(SlamEngine(str(path), **PARITY), frames[:11])   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = run_sequence(engine, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    engine.close()
+    fps = T / elapsed
+    print(f"  engine: run_sequence over {T} frames in {elapsed:.4f} s = "
+          f"{fps:.2f} frames/s", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    check_parity_launches(failures, launches, S, frames=T)
+    matched = np.array([r["total_matches"] for r in records])
+    inl = np.array([r["li_inliers"] + r["hi_inliers"] for r in records])
+    healthy = float(np.mean(inl >= 0.5 * matched))
+    check(failures, healthy >= 0.9 and matched.mean() >= 20,
+          f"tracking healthy on {healthy:.3f} of frames (>= 0.9): mean "
+          f"matched {matched.mean():.1f} (>= 20), mean inliers "
+          f"{inl.mean():.1f}")
+
+    allowed = {source_line(engine_mod, "packed.cpu()"),
+               source_line(step_mod, ".tolist()")}
+    eng = SlamEngine(str(path), **PARITY)
+    eng.init(frames[0])
+    torch.cuda.synchronize()
+    sites, sync_s = count_syncs(lambda: [eng.step(f) for f in frames[1:]])
+    syncs = sum(sites.values())
+    print(f"  sync debug run: {S / sync_s:.2f} steps/s, {syncs} host syncs "
+          f"({syncs / S:.3f} per frame): {dict(sites)}", flush=True)
+    check(failures, syncs / S <= LARGE_SYNCS_PER_FRAME
+          and set(sites) <= allowed,
+          f"host syncs per frame {syncs / S:.3f} <= "
+          f"{LARGE_SYNCS_PER_FRAME}, only at {sorted(allowed)}")
+
+    eng = SlamEngine(str(path), **PARITY)
+    eng.init(frames[0])
+    torch.cuda.synchronize()
+    K = min(PARITY_PROFILED, S)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in frames[1:K + 1]:
+            eng.step(f)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, K, LIVE_PHASE_PREFIX)
+    kernel_us = kernel_device_us(averages, K, LIVE_KERNEL_NAMES + (
+        "sinv_ns", "measure_kernel<true>"))
+    print(f"  per-phase ms/frame under the profiler over {K} steps (host, "
+          "device of PyTorch's kernels): "
+          + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+                      for k, v in phase_ms.items()), flush=True)
+    print("  hand-written kernels under the profiler (us a frame, calls a "
+          "frame): " + ", ".join(
+              f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
+              for k, v in kernel_us.items()), flush=True)
+
+    # the live log of this run, replayed on the CPU in float64 (quirks)
+    log = replay.record_live_log(engine.runtime,
+                                 engine.runtime._tensor(frames))
+    card = log["records"]
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(rt64, log)
+    cpu_s = time.perf_counter() - t0
+    agree = against_float64(card.x_cam, card.inliers, card.visible, recs64)
+    print(f"  live log: {len(log['init'])} bootstrap features, "
+          f"{sum(len(f['new']) for f in log['frames'])} additions; float64 "
+          f"CPU replay {cpu_s:.1f} s: deviation max {agree['dev_max']:.3e} "
+          f"(frame {agree['worst_frame']}), mean {agree['dev_mean']:.3e}; "
+          f"inlier masks identical on {agree['inliers_same']:.3f} of "
+          f"frames, visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
+          f"live replay deviation <= {LIVE_REPLAY_TOL} on every frame")
+    check(failures, agree["inliers_same"] >= LIVE_MASKS_SAME
+          and agree["visible_same"] >= LIVE_MASKS_SAME,
+          f"live replay masks identical on >= {LIVE_MASKS_SAME} of frames")
+    return dict(fps=fps, elapsed_s=elapsed, launches=launches, syncs=syncs,
+                syncs_per_frame=syncs / S, sync_sites=dict(sites),
+                fps_sync_debug=S / sync_s, profiled_steps=K,
+                phase_ms=phase_ms, kernels_us=kernel_us, healthy=healthy,
+                mean_matched=float(matched.mean()),
+                mean_inliers=float(inl.mean()), cpu_s=cpu_s, float64=agree)
 
 
 # ------------------------------------------------------------------- main
@@ -1428,25 +1831,40 @@ def main() -> int:
           f"{rows['sinv']['cond']:.3e}):", flush=True)
     time_row("sinv", rows["sinv"])
 
+    failures = []
+    parity = phase_parity(cfg, path, failures)
+    end_phase("parity", failures)
+
     T = T_FRAMES
+    # each kernel's launches come from the path that runs it: the s3 live
+    # path, the large map for the S-inverse, the parity engine for the
+    # measure kernel's quirks variant; the Cholesky solve has none
+    paths = {"sinv": ("large map (phase 6)", large["launches"], T_LIVE),
+             "measure_quirks": ("parity engine (phase 7)",
+                                parity["engine"]["launches"],
+                                T_PARITY_LIVE),
+             "cholsolve": ("none: no engine path calls solve_spd", None, 1)}
     kernels = []
     for name, spec in KERNELS.items():
         row = rows[name]
-        # each kernel's launches come from the path that runs it
-        on = large if name == "sinv" else live
+        on, counts, frames = paths.get(name, ("s3 live path (phase 5)",
+                                              live["launches"], T_LIVE))
+        launches = counts[name] if counts is not None else 0
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"],
-            "launches": on["launches"][name],
+            "replaces": spec["replaces"], "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "eager_ms": row["eager_ms"],
-            "launches_per_frame": on["launches"][name] / T_LIVE,
+            "eager_ms": row["eager_ms"], "path": on,
+            "launches_per_frame": launches / frames,
             "launches_replay_path": path["launches"][name],
             "launches_s3_live_path": live["launches"][name],
-            "launches_large_map": large["launches"][name]})
-    extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024")
+            "launches_large_map": large["launches"][name],
+            "launches_parity_replay": parity["replay"]["launches"][name],
+            "launches_parity_engine": parity["engine"]["launches"][name]})
+    extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
+             "cholsolve_336x1024")
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
@@ -1458,7 +1876,9 @@ def main() -> int:
                   frames=T, syncs_per_frame=path["syncs"] / T, replay=rep,
                   live={k: v for k, v in live.items()},
                   large_map=large, sinv_path_row=rows["sinv"],
-                  large_map_kernels={k: rows[k] for k in extra})
+                  large_map_kernels={k: rows[k] for k in extra},
+                  cholsolve_checks=rows["cholsolve"]["checks"],
+                  parity=parity, seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"replay path: frames/s {path['fps']:.2f} over {T} frames, host "
@@ -1468,6 +1888,12 @@ def main() -> int:
     print(f"large map (F = {large['F']}, N = {large['N']}): frames/s "
           f"{large['fps']:.2f} over {T_LIVE} frames, host syncs/frame "
           f"{large['syncs_per_frame']:.3f}", flush=True)
+    pr, pe = parity["replay"], parity["engine"]
+    print(f"parity replay: frames/s {pr['fps']:.2f} over {T} frames, host "
+          f"syncs {pr['syncs']}; parity engine: frames/s {pe['fps']:.2f} "
+          f"over {T_PARITY_LIVE} frames, host syncs/frame "
+          f"{pe['syncs_per_frame']:.3f}; {time.perf_counter() - T_START:.1f}"
+          " s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

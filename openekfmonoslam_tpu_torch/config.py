@@ -155,7 +155,8 @@ class DescriptorConfig:
         if self.kind.upper() == "PATCH":
             return (2 * self.patch_radius + 1) ** 2
         raise NotImplementedError(
-            f"{self.kind} float descriptors are not ported yet")
+            f"{self.kind} float descriptors are not ported yet (ROADMAP.md "
+            "Queue 1 item 14)")
 
 
 @dataclass(frozen=True)

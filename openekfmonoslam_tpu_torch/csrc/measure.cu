@@ -3,12 +3,20 @@
 // Hc7 = dh/d(r, q) (2x7) and Hf = dh/d(feature) (2x6).
 //
 // Replaces the TPU kernel _kernel / measure_chain_pallas
-// (openekfmonoslam_tpu/ops/measure_kernel.py:44,237), correct-math chain
-// only (the reference-quirks variants are not ported).  Line for line the
-// plain version (filter/measure_fast.py measurements_with_jacobians +
-// visibility): rotate the inverse-depth or XYZ point into the camera,
-// project, distort by 10 Newton iterations plus the final implicit step,
-// then the chain rule IDJ @ FPJ @ d(p_cam)/d(...).
+// (openekfmonoslam_tpu/ops/measure_kernel.py:44,237), both of its variants,
+// chosen as there by a flag that is uniform over the launch (a template
+// parameter here, instantiated twice):
+//   - the correct-math chain;
+//   - QUIRKS, the reference's bug-compatible chain of the parity mode
+//     (measure_kernel.py:115-131, 160-166, 193-196): the one-shot
+//     undistort Jacobian at the distorted pixel, inverted through its
+//     determinant, as IDJ; entry (0, 1) of dh/dr's R^T zeroed (the
+//     jacobian[1]/[2] slip, dh/dr only); the world-frame anchor offset in
+//     the drho column.  The value h(x) and the gate are the same.
+// Line for line the plain version (filter/measure_fast.py
+// measurements_with_jacobians + visibility): rotate the inverse-depth or
+// XYZ point into the camera, project, distort by 10 Newton iterations plus
+// the final implicit step, then the chain rule IDJ @ FPJ @ d(p_cam)/d(...).
 //
 // Bound on the H100: launch latency.  F = 96 slots read 6 floats and write
 // 2 + 14 + 12 floats and a flag each (~11 KB), and do ~400 flops each.
@@ -23,6 +31,7 @@ namespace {
 constexpr int NEWTON_ITERS = 10;
 constexpr int THREADS = 128;
 
+template <bool QUIRKS>
 __global__ void __launch_bounds__(THREADS)
 measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
                const uint8_t* __restrict__ is_xyz,
@@ -89,14 +98,34 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     uv_out[2 * f] = ud;
     uv_out[2 * f + 1] = vd;
 
-    // IDJ = d(distort)/d(uv_undist), implicit function theorem
-    const float dd_drd = 2.0f * c.k1 * rd + 4.0f * c.k2 * rd * rd2;
-    const float cmul = dd_drd / (gp * ru);
-    const float inv_d = 1.0f / d, inv_d2 = inv_d * inv_d;
-    const float i00 = inv_d - du * cmul * c.dx * c.dx * du * inv_d2;
-    const float i01 = -du * cmul * c.dy * c.dy * dv * inv_d2;
-    const float i10 = -dv * cmul * c.dx * c.dx * du * inv_d2;
-    const float i11 = inv_d - dv * cmul * c.dy * c.dy * dv * inv_d2;
+    float i00, i01, i10, i11;
+    if (QUIRKS) {
+        // IDJ = inverse of the one-shot undistort Jacobian at the
+        // distorted pixel
+        const float pdx = ud - c.cx, pdy = vd - c.cy;
+        const float mxq = c.dx * pdx, myq = c.dy * pdy;
+        const float r2q = mxq * mxq + myq * myq;
+        const float radq = 1.0f + c.k1 * r2q + c.k2 * r2q * r2q;
+        const float gq = c.k1 + 2.0f * c.k2 * r2q;
+        const float u00 = radq + pdx * gq * 2.0f * pdx * c.dx * c.dx;
+        const float u01 = pdx * gq * 2.0f * pdy * c.dy * c.dy;
+        const float u10 = pdy * gq * 2.0f * pdx * c.dx * c.dx;
+        const float u11 = radq + pdy * gq * 2.0f * pdy * c.dy * c.dy;
+        const float detq = u00 * u11 - u01 * u10;
+        i00 = u11 / detq;
+        i01 = -u01 / detq;
+        i10 = -u10 / detq;
+        i11 = u00 / detq;
+    } else {
+        // IDJ = d(distort)/d(uv_undist), implicit function theorem
+        const float dd_drd = 2.0f * c.k1 * rd + 4.0f * c.k2 * rd * rd2;
+        const float cmul = dd_drd / (gp * ru);
+        const float inv_d = 1.0f / d, inv_d2 = inv_d * inv_d;
+        i00 = inv_d - du * cmul * c.dx * c.dx * du * inv_d2;
+        i01 = -du * cmul * c.dy * c.dy * dv * inv_d2;
+        i10 = -dv * cmul * c.dx * c.dx * du * inv_d2;
+        i11 = inv_d - dv * cmul * c.dy * c.dy * dv * inv_d2;
+    }
     // FPJ = d(project)/d(p_cam); proj = IDJ @ FPJ (2x3)
     const float f00 = c.fx * inv_z, f02 = -px * c.fx * inv_z * inv_z;
     const float f11 = c.fy * inv_z, f12 = -py * c.fy * inv_z * inv_z;
@@ -107,12 +136,16 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     float* hf = hf_out + 12 * (size_t)f;   // (2, 6) row-major
     const float s = xyz ? 1.0f : rho;
     const float inv = xyz ? 0.0f : 1.0f;
-    // pR[j] = proj @ (column j of Rt)
+    // pR[j] = proj @ (column j of Rt); dh/dr's column 1 loses Rt[0][1]
+    // under QUIRKS (the slip)
     for (int j = 0; j < 3; ++j) {
         const float pr0 = p00 * Rt[0][j] + p01 * Rt[1][j] + p02 * Rt[2][j];
         const float pr1 = p10 * Rt[0][j] + p11 * Rt[1][j] + p12 * Rt[2][j];
-        hc[j] = -s * pr0;
-        hc[7 + j] = -s * pr1;
+        const float rd0 = (QUIRKS && j == 1) ? 0.0f : Rt[0][j];
+        const float prd0 = p00 * rd0 + p01 * Rt[1][j] + p02 * Rt[2][j];
+        const float prd1 = p10 * rd0 + p11 * Rt[1][j] + p12 * Rt[2][j];
+        hc[j] = -s * prd0;
+        hc[7 + j] = -s * prd1;
         hf[j] = xyz ? pr0 : rho * pr0;
         hf[6 + j] = xyz ? pr1 : rho * pr1;
     }
@@ -134,16 +167,21 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
         hc[10 + k] = sg * (p10 * cq[k][0] + p11 * cq[k][1] + p12 * cq[k][2]);
     }
 
-    // Hf bearing and inverse-depth columns: proj @ Rt @ v
+    // Hf bearing and inverse-depth columns: proj @ Rt @ v; under QUIRKS
+    // the drho column is proj @ (p0 - r), unrotated
     const float vth[3] = {cph * cth, 0.0f, -cph * sth};    // dm/dtheta
     const float vph[3] = {-sph * sth, -cph, -sph * cth};   // dm/dphi
     const float voff[3] = {ox, oy, oz};                     // p0 - r
     const float* vs[3] = {vth, vph, voff};
     for (int col = 0; col < 3; ++col) {
         const float* v = vs[col];
-        const float t0 = Rt[0][0] * v[0] + Rt[0][1] * v[1] + Rt[0][2] * v[2];
-        const float t1 = Rt[1][0] * v[0] + Rt[1][1] * v[1] + Rt[1][2] * v[2];
-        const float t2 = Rt[2][0] * v[0] + Rt[2][1] * v[1] + Rt[2][2] * v[2];
+        const bool rotate = !(QUIRKS && col == 2);
+        const float t0 = rotate ? Rt[0][0] * v[0] + Rt[0][1] * v[1]
+                                      + Rt[0][2] * v[2] : v[0];
+        const float t1 = rotate ? Rt[1][0] * v[0] + Rt[1][1] * v[1]
+                                      + Rt[1][2] * v[2] : v[1];
+        const float t2 = rotate ? Rt[2][0] * v[0] + Rt[2][1] * v[1]
+                                      + Rt[2][2] * v[2] : v[2];
         hf[3 + col] = inv * (p00 * t0 + p01 * t1 + p02 * t2);
         hf[9 + col] = inv * (p10 * t0 + p11 * t1 + p12 * t2);
     }
@@ -159,12 +197,18 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
 
 }  // namespace
 
+// ``quirks`` != 0 launches the QUIRKS instantiation.
 EKF_EXPORT int ekf_measure(const float* cam7, const float* feats,
                            const uint8_t* is_xyz, const uint8_t* active,
                            float* uv, float* hc7, float* hf, uint8_t* visible,
-                           int F, const CamParams* cam, void* stream) {
+                           int F, int quirks, const CamParams* cam,
+                           void* stream) {
     const int blocks = (F + THREADS - 1) / THREADS;
-    measure_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        cam7, feats, is_xyz, active, uv, hc7, hf, visible, F, *cam);
+    if (quirks)
+        measure_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            cam7, feats, is_xyz, active, uv, hc7, hf, visible, F, *cam);
+    else
+        measure_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            cam7, feats, is_xyz, active, uv, hc7, hf, visible, F, *cam);
     return ekf_last_error();
 }

@@ -17,6 +17,14 @@ feature detection (``phase_mapman``): the step reads (add?, needed) back
 once a frame, skips detection on frames that need nothing, as the JAX
 ``cond`` does, and otherwise runs exactly ``min(needed, C)`` zone picks.
 ``step_injected`` reads nothing back.
+
+The parity mode (``config.reference_quirks``, with
+``config.ransac_parity_visit``) runs the reference's bug-compatible
+filter, as the JAX package does: the quirks variant of the measure kernel,
+the DELTA deadband (so every update takes the chain, and its S^-1 is the
+S-inverse kernel on the card), the insertion-order RANSAC visit with the
+adaptive visit bound, and the insertion-order conversion scan.  The order
+keys are ``state.birth``.
 """
 
 from __future__ import annotations
@@ -92,10 +100,6 @@ class SlamRuntime:
     """Static per-run context: config scalars, camera, device, dtype."""
 
     def __init__(self, config: SlamConfig, device=None):
-        if config.reference_quirks:
-            raise NotImplementedError("reference_quirks mode is not ported")
-        if config.ransac_parity_visit:
-            raise NotImplementedError("ransac_parity_visit is not ported")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = (torch.float64 if config.dtype == "float64"
@@ -108,6 +112,9 @@ class SlamRuntime:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.hp_layout = config.hp_layout
+        # bug-compatible mode: quirky H chain, DELTA deadband,
+        # insertion-order RANSAC visit and conversion scan
+        self.quirks = bool(config.reference_quirks)
         ekf = config.ekf
         self.gate = (config.gate_scale ** 2) * config.chi2_95_2
         self.exclusion_radius = config.gate_scale * math.sqrt(
@@ -182,6 +189,7 @@ class SlamRuntime:
         state = state._replace(frame=state.frame + 1)
         state = pred_mod.predict(state, self.config)
         pred = meas_mod.predict_measurements(state, self.camera,
+                                             quirks=self.quirks,
                                              hp_layout=self.hp_layout)
         return state, pred
 
@@ -215,16 +223,21 @@ class SlamRuntime:
             state, pred, m.z, m.matched, self.camera,
             cfg.ekf.ransac_threshold_predict_distance,
             cfg.ekf.ransac_all_inliers_probability,
-            cfg.camera.pixel_error_x, cfg.max_hypotheses)
+            cfg.camera.pixel_error_x, cfg.max_hypotheses,
+            cfg.ransac_parity_visit,
+            visit_key=state.birth if self.quirks else None,
+            deadband=self.quirks)
 
     def phase_update_li(self, state: SlamState, pred, m, inliers):
         """[4] low-innovation joint update (EKF.cpp:423-437)."""
         return upd_mod.update(state, pred, m.z, inliers,
-                              self.config.camera.pixel_error_x)
+                              self.config.camera.pixel_error_x,
+                              deadband=self.quirks)
 
     def phase_rescue(self, state: SlamState, m, outliers):
         """[5] re-predict + chi2 outlier rescue (EKF.cpp:443-517)."""
         pred2 = meas_mod.predict_measurements(state, self.camera,
+                                              quirks=self.quirks,
                                               hp_layout=self.hp_layout)
         rescued = ransac_mod.rescue_outliers(
             pred2, m.z, outliers, self.config.ekf.ransac_chi2_threshold)
@@ -233,7 +246,8 @@ class SlamRuntime:
     def phase_update_hi(self, state: SlamState, pred2, m, rescued):
         """[6] high-innovation joint update (EKF.cpp:522-540)."""
         return upd_mod.update(state, pred2, m.z, rescued,
-                              self.config.camera.pixel_error_x)
+                              self.config.camera.pixel_error_x,
+                              deadband=self.quirks)
 
     def mapman_maintain(self, state: SlamState, pred, m, inliers_all):
         """Counters plus the bad-ratio and unseen-pressure culls
@@ -289,7 +303,7 @@ class SlamRuntime:
                                                     inliers_all)
         state = mapman.convert_one_to_xyz(
             state, cfg.ekf.inverse_depth_linearity_index_threshold,
-            enable=do_mm)
+            enable=do_mm, order_key=state.birth if self.quirks else None)
 
         C, F = cfg.max_features, state.n_features
         dev = self.device
@@ -375,6 +389,7 @@ class SlamRuntime:
             state = pred_mod.predict(state, cfg)
         with _phase("measure"):
             pred = meas_mod.predict_measurements(state, cam,
+                                                 quirks=self.quirks,
                                                  hp_layout=self.hp_layout)
             matched = matched & pred.visible
         with _phase("ransac"):
@@ -382,16 +397,21 @@ class SlamRuntime:
                 state, pred, z, matched, cam,
                 ekf.ransac_threshold_predict_distance,
                 ekf.ransac_all_inliers_probability, pixel_error,
-                cfg.max_hypotheses)
+                cfg.max_hypotheses, cfg.ransac_parity_visit,
+                visit_key=state.birth if self.quirks else None,
+                deadband=self.quirks)
         with _phase("update_li"):
-            state = upd_mod.update(state, pred, z, res.inliers, pixel_error)
+            state = upd_mod.update(state, pred, z, res.inliers, pixel_error,
+                                   deadband=self.quirks)
         with _phase("rescue"):
             pred2 = meas_mod.predict_measurements(state, cam,
+                                                  quirks=self.quirks,
                                                   hp_layout=self.hp_layout)
             rescued = ransac_mod.rescue_outliers(
                 pred2, z, res.outliers, ekf.ransac_chi2_threshold)
         with _phase("update_hi"):
-            state = upd_mod.update(state, pred2, z, rescued, pixel_error)
+            state = upd_mod.update(state, pred2, z, rescued, pixel_error,
+                                   deadband=self.quirks)
             inliers_all = res.inliers | rescued
 
         # map management mirrors the live pipeline (EKF.cpp:567-612):
@@ -414,7 +434,8 @@ class SlamRuntime:
             state = mapman.remove_features(state, unseen & pressure & do_mm)
             state = mapman.convert_one_to_xyz(
                 state, ekf.inverse_depth_linearity_index_threshold,
-                enable=do_mm)
+                enable=do_mm,
+                order_key=state.birth if self.quirks else None)
 
         F = state.n_features
         C = cfg.max_features

@@ -101,12 +101,17 @@ def conversion_candidate(state: SlamState, threshold: float,
                          order_key: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(eligible, slot): whether any slot is below the threshold, and the
-    first such slot in slot order."""
-    if order_key is not None:
-        raise NotImplementedError(
-            "the insertion-order conversion scan is not ported")
+    first such slot in slot order, or, with ``order_key`` (the parity
+    mode passes ``state.birth``), the one of least key: the reference
+    scans mapFeaturesInvDepth in insertion order
+    (MapManagement.cpp:494-523)."""
     below = linearity_index(state) < threshold
-    return torch.any(below), torch.argmax(below.to(torch.int32))
+    if order_key is None:
+        return torch.any(below), torch.argmax(below.to(torch.int32))
+    key = torch.where(below, order_key.to(torch.int32),
+                      torch.full_like(order_key, torch.iinfo(torch.int32).max,
+                                      dtype=torch.int32))
+    return torch.any(below), torch.argmin(key)
 
 
 def convert_one_to_xyz(state: SlamState, threshold: float,

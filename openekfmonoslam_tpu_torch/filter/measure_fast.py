@@ -7,8 +7,9 @@ filter/measure_fast.py, correct-math chain only).
     FPJ = d(project)/d(p_cam), IDJ = d(distort)/d(uv_undist) by implicit
     differentiation of the Newton radius equation.
 
-This is the plain version of the measure kernel (ops/measure_kernel.py);
-the reference-quirks variant of the JAX package is not ported.
+This is the plain version of the measure kernel (ops/measure_kernel.py),
+both of its variants: the correct-math chain and, with ``quirks``, the
+reference's bug-compatible chain (the parity mode, ``reference_quirks``).
 """
 
 from __future__ import annotations
@@ -57,9 +58,19 @@ def _camera_frame(cam7, feats, is_xyz):
 def measurements_with_jacobians(camera: Camera, cam7: torch.Tensor,
                                 feats: torch.Tensor, is_xyz: torch.Tensor,
                                 quirks: bool = False):
-    """(uv (F,2), Hc7 (F,2,7), Hf (F,2,6)) by the analytic chain."""
-    if quirks:
-        raise NotImplementedError("reference_quirks H chain is not ported")
+    """(uv (F,2), Hc7 (F,2,7), Hf (F,2,6)) by the analytic chain.
+
+    ``quirks`` switches the H chain to the reference's transcribed bugs
+    (eval/oracle.py's OracleQuirks documents each):
+      * the jacobian[1]/[2] slip: dh/dr uses -R^T with entry (0, 1)
+        zeroed (MeasurementPrediction.cpp:371-394); dh/dq, Hf and the
+        value keep the true R^T;
+      * the unrotated drho column: Hf[:, 5] carries the world-frame anchor
+        offset, not R^T (p0 - r) (:553-580);
+      * the one-shot distortion Jacobian: IDJ is the inverse of the
+        one-shot undistort Jacobian at the distorted pixel (:308-337), not
+        the exact implicit derivative of the Newton inversion.
+    The measurement value h(x) is the same in both modes."""
     Rt, (ax, ay, az), (ox, oy, oz), (cph, sph, cth, sth), (px, py, pz) = \
         _camera_frame(cam7, feats, is_xyz)
     rho = feats[:, 5]
@@ -97,17 +108,40 @@ def measurements_with_jacobians(camera: Camera, cam7: torch.Tensor,
     rd = rd_s - fv / gp
     rd2 = rd * rd
     d = 1.0 + k1 * rd2 + k2 * rd2 * rd2
-    uv = torch.stack([cx + du / d, cy + dv / d], dim=-1)
+    ud = cx + du / d
+    vd = cy + dv / d
+    uv = torch.stack([ud, vd], dim=-1)
 
-    # ---- IDJ = d(distort)/d(uv_undist) (implicit function theorem)
-    dd_drd = 2.0 * k1 * rd + 4.0 * k2 * rd * rd2
-    cmul = dd_drd / (gp * ru)
-    inv_d = 1.0 / d
-    inv_d2 = inv_d * inv_d
-    i00 = inv_d - du * cmul * dx_ * dx_ * du * inv_d2
-    i01 = -du * cmul * dy_ * dy_ * dv * inv_d2
-    i10 = -dv * cmul * dx_ * dx_ * du * inv_d2
-    i11 = inv_d - dv * cmul * dy_ * dy_ * dv * inv_d2
+    if quirks:
+        # ---- IDJ = inverse of the one-shot undistort Jacobian at the
+        # distorted pixel (makeJacobianOfDistortionFunction, inverted by
+        # makeJacobianOfProjection :343-362)
+        pdx = ud - cx
+        pdy = vd - cy
+        mxq = dx_ * pdx
+        myq = dy_ * pdy
+        r2q = mxq * mxq + myq * myq
+        radq = 1.0 + k1 * r2q + k2 * r2q * r2q
+        gq = k1 + 2.0 * k2 * r2q
+        u00 = radq + pdx * gq * 2.0 * pdx * dx_ * dx_
+        u01 = pdx * gq * 2.0 * pdy * dy_ * dy_
+        u10 = pdy * gq * 2.0 * pdx * dx_ * dx_
+        u11 = radq + pdy * gq * 2.0 * pdy * dy_ * dy_
+        detq = u00 * u11 - u01 * u10
+        i00 = u11 / detq
+        i01 = -u01 / detq
+        i10 = -u10 / detq
+        i11 = u00 / detq
+    else:
+        # ---- IDJ = d(distort)/d(uv_undist) (implicit function theorem)
+        dd_drd = 2.0 * k1 * rd + 4.0 * k2 * rd * rd2
+        cmul = dd_drd / (gp * ru)
+        inv_d = 1.0 / d
+        inv_d2 = inv_d * inv_d
+        i00 = inv_d - du * cmul * dx_ * dx_ * du * inv_d2
+        i01 = -du * cmul * dy_ * dy_ * dv * inv_d2
+        i10 = -dv * cmul * dx_ * dx_ * du * inv_d2
+        i11 = inv_d - dv * cmul * dy_ * dy_ * dv * inv_d2
 
     # ---- FPJ = d(project)/d(p_cam); proj = IDJ @ FPJ (2x3)
     f00 = fx * inv_z
@@ -128,7 +162,10 @@ def measurements_with_jacobians(camera: Camera, cam7: torch.Tensor,
     # ---- dh/dr = -s proj @ Rt, s = XYZ ? 1 : rho
     s = torch.where(is_xyz, torch.ones_like(rho), rho)
     pR = [proj_mul(Rt[0][j], Rt[1][j], Rt[2][j]) for j in range(3)]
-    dh_dr = [[-s * pR[j][i] for j in range(3)] for i in range(2)]
+    # the slip: entry (0, 1) of dh/dr's R^T is never written (0)
+    pRd = ([pR[0], proj_mul(0.0, Rt[1][1], Rt[2][1]), pR[2]] if quirks
+           else pR)
+    dh_dr = [[-s * pRd[j][i] for j in range(3)] for i in range(2)]
 
     # ---- dh/dq through the conjugate quaternion
     w, qx, qy, qz = cam7[3], -cam7[4], -cam7[5], -cam7[6]
@@ -157,7 +194,9 @@ def measurements_with_jacobians(camera: Camera, cam7: torch.Tensor,
     zero = torch.zeros_like(cph)
     pR_dmth = proj_mul(*rt_mul(cph * cth, zero, -cph * sth))
     pR_dmph = proj_mul(*rt_mul(-sph * sth, -cph, -sph * cth))
-    pR_off = proj_mul(*rt_mul(ox, oy, oz))
+    # the unrotated drho column: the world-frame offset (p0 - r)
+    pR_off = (proj_mul(ox, oy, oz) if quirks
+              else proj_mul(*rt_mul(ox, oy, oz)))
     hf = [[torch.where(is_xyz, pR[j][i], rho * pR[j][i]) for j in range(3)]
           + [inv * pR_dmth[i], inv * pR_dmph[i], inv * pR_off[i]]
           for i in range(2)]

@@ -6,12 +6,18 @@ matched slot is one hypothesis: a state-only 1-point Kalman update
 (Update.cpp:269-275), then every slot is re-predicted and the matches
 within the pixel threshold counted.  All hypotheses are evaluated at once
 as a (hypotheses x slots) batch and the winner is the argmax of the
-support (ties to the lowest slot).  The reference's sequential adaptive
-visit bound (``ransac_parity_visit``) is not ported.
+support (ties to the lowest slot).
+
+The parity mode replays the reference's sequential loop exactly: its
+adaptive visit bound (``parity_visit``, ``_adaptive_visit_scan``), its
+insertion-order visit (``visit_key``) and the DELTA deadband of its
+state-only updates (``deadband``).  The visit scan is vectorized and reads
+nothing back to the host.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -21,6 +27,9 @@ from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.filter.measure import (
     Prediction, measure_one, point_in_camera_frame)
 from openekfmonoslam_tpu_torch.filter.state import CAM_DIM, FEAT_DIM, SlamState
+from openekfmonoslam_tpu_torch.filter.update import deadbanded
+
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def _solve2x2(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,17 +53,24 @@ class RansacResult(NamedTuple):
 
 def _batched_state_only_updates(state: SlamState, pred: Prediction,
                                 z: torch.Tensor, matched: torch.Tensor,
-                                pixel_error: float) -> torch.Tensor:
+                                pixel_error: float,
+                                deadband: bool = False) -> torch.Tensor:
     """(F, N) hypothesized state vectors: one state-only 1-point update
     per matched slot, K_i dz_i = (H_i P)^T S_i^-1 dz_i with the rows of
-    the shared H P (P is symmetric)."""
+    the shared H P (P is symmetric).  ``deadband``: updateOnlyState runs
+    through the reference's deadbanded stateUpdate (Update.cpp:133-203)."""
     dtype = state.P.dtype
     F = pred.uv.shape[0]
     HPr = pred.HP.reshape(F, 2, -1)
     S = pred.S + (pixel_error - 1.0) * torch.eye(
         2, dtype=dtype, device=pred.S.device)[None]
-    sol = _solve2x2(S, z - pred.uv)
+    dz = z - pred.uv
+    if deadband:
+        dz = deadbanded(dz)
+    sol = _solve2x2(S, dz)
     dx = torch.einsum("fin,fi->fn", HPr, sol)
+    if deadband:
+        dx = deadbanded(dx)
     dx = dx * matched[:, None].to(dtype)
     return state.x[None, :] + dx
 
@@ -79,6 +95,50 @@ def _support_counts(states_x: torch.Tensor, state: SlamState,
     return torch.sum(good.to(torch.int32), dim=1), good
 
 
+def _adaptive_visit_scan(support: torch.Tensor, matched: torch.Tensor,
+                         all_inliers_probability: float,
+                         max_hypotheses: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's sequential hypothesis loop (1PointRansac.cpp:
+    125-186) over precomputed support counts, as (best_index,
+    best_support, visited_count), 0-dim int32 tensors on the device.
+
+    Hypothesis k is the k-th match; it is visited while k <
+    numberOfHipotesis, and a visited one with strictly greater support
+    leads and sets numberOfHipotesis = log(1 - p) / log(e), e its outlier
+    ratio, computed in float64 as the C++ does.  Vectorized exactly: the
+    bound before hypothesis i follows from the running maximum of the
+    matched supports before i (the leaders are its strict increases), so
+    the first unvisited hypothesis is the first match whose rank reaches
+    that bound, every match before it is visited, and the winner is the
+    first visited index of the maximum support."""
+    F = support.shape[0]
+    dev = support.device
+    sup = support.to(torch.int32)
+    m32 = matched.to(torch.int32)
+    n_matches = torch.sum(m32)
+    rank = torch.cumsum(m32, 0, dtype=torch.int32) - 1
+    ms = torch.where(matched, sup, torch.zeros_like(sup))
+    lead = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                      torch.cummax(ms, 0).values[:-1]])
+    log1mp = math.log(1.0 - all_inliers_probability)
+    e = 1.0 - lead.to(torch.float64) / torch.clamp(n_matches, min=1)
+    # floor() cast as the C++ static_cast<int>; clamped at e ~ 0 and 1
+    bound = torch.where(
+        e <= 0.0, torch.zeros_like(lead),
+        torch.where(e >= 1.0, torch.full_like(lead, max_hypotheses),
+                    (log1mp / torch.log(torch.clamp(e, min=1e-30))
+                     ).to(torch.int32)))
+    idx = torch.arange(F, device=dev)
+    stop = torch.where(matched & (rank >= bound), idx, torch.full_like(idx, F))
+    visited = matched & (idx < torch.min(stop))
+    vs = torch.where(visited, sup, torch.zeros_like(sup))
+    best_s = torch.max(vs)
+    best_i = torch.where(best_s > 0, torch.argmax(vs),
+                         torch.zeros_like(best_s)).to(torch.int32)
+    return best_i, best_s, torch.sum(visited, dtype=torch.int32)
+
+
 def ransac(state: SlamState, pred: Prediction, z: torch.Tensor,
            matched: torch.Tensor, camera: Camera, threshold: float,
            all_inliers_probability: float, pixel_error: float,
@@ -87,23 +147,42 @@ def ransac(state: SlamState, pred: Prediction, z: torch.Tensor,
            deadband: bool = False) -> RansacResult:
     """1-point RANSAC over all matched slots (1PointRansac.cpp:101-234):
     argmax of the support over every hypothesis, ties to the lowest index
-    (the reference's strict ``>``)."""
-    if parity_visit or visit_key is not None or deadband:
-        raise NotImplementedError(
-            "the reference-parity RANSAC visit order and deadband are not "
-            "ported")
+    (the reference's strict ``>``).
+
+    ``parity_visit`` replays the reference's adaptive visit bound
+    (``_adaptive_visit_scan``); ``visit_key`` visits the hypotheses in
+    the order of that per-slot key (``state.birth``: the reference's
+    insertion order); ``deadband`` applies the DELTA deadband inside the
+    state-only updates.  The winner is picked on the device with
+    ``index_select``: indexing by a 0-dim tensor would read it back."""
     states_x = _batched_state_only_updates(state, pred, z, matched,
-                                           pixel_error)
+                                           pixel_error, deadband=deadband)
     support, good = _support_counts(states_x, state, camera, z, matched,
                                     threshold)
-    masked_support = torch.where(matched, support,
-                                 torch.full_like(support, -1))
-    # the winner is picked on the device: index_select with the 0-dim
-    # argmax, since indexing by a 0-dim tensor reads it back to the host
-    best_i = torch.argmax(masked_support)
-    best_s = torch.clamp(torch.max(masked_support), min=0)
-    visited = torch.sum(matched.to(torch.int32))
-    best_good = torch.index_select(good, 0, best_i.reshape(1))[0]
+    perm = None
+    if visit_key is not None:
+        # matched slots in key order (stable); unmatched ones sink to the
+        # end and are mask-skipped anyway
+        key = torch.where(matched, visit_key.to(torch.int32),
+                          torch.full_like(support, INT32_MAX))
+        perm = torch.sort(key, stable=True).indices
+        support = torch.index_select(support, 0, perm)
+        matched_v = torch.index_select(matched, 0, perm)
+    else:
+        matched_v = matched
+    if parity_visit:
+        best_v, best_s, visited = _adaptive_visit_scan(
+            support, matched_v, all_inliers_probability, max_hypotheses)
+    else:
+        masked_support = torch.where(matched_v, support,
+                                     torch.full_like(support, -1))
+        best_v = torch.argmax(masked_support)
+        best_s = torch.clamp(torch.max(masked_support), min=0)
+        visited = torch.sum(matched.to(torch.int32))
+    best_i = best_v.reshape(1)
+    if perm is not None:
+        best_i = torch.index_select(perm, 0, best_i)
+    best_good = torch.index_select(good, 0, best_i)[0]
     inliers = best_good & matched & (best_s > 0)
     return RansacResult(inliers=inliers, outliers=matched & ~inliers,
                         best_support=best_s, hypotheses_visited=visited)

@@ -120,7 +120,8 @@ def make_initial_state(config: SlamConfig, dtype: torch.dtype,
 
     if not config.descriptor.is_binary:
         raise NotImplementedError(
-            f"{config.descriptor.kind} descriptors are not ported yet")
+            f"{config.descriptor.kind} descriptors are not ported yet "
+            "(ROADMAP.md Queue 1 item 14)")
     i32 = dict(dtype=torch.int32, device=device)
     return SlamState(
         x=x,

@@ -9,8 +9,9 @@ masked update equal to the compacted one.
 
 ``update`` routes as the JAX package does (filter/update.py:139-149): the
 fused CUDA joint-update kernel (ops/update_kernel.py) where
-``update_kernel_applicable`` holds (the s3 map, N = 640), and otherwise
-the chain below, ``kalman_xp`` + ``finalize_xp``, whose S^-1 is
+``update_kernel_applicable`` holds (the s3 map, N = 640) and the DELTA
+deadband is off, and otherwise the chain below (every update of the parity
+mode, whatever the shape), ``kalman_xp`` + ``finalize_xp``, whose S^-1 is
 ``ops/sinv.spd_inverse`` (the Newton-Schulz kernel on the card up to
 2F = 512; the large map, N = 1024 and 2F = 336, takes it).  The chain's
 products K^T = S^-1 (H P) and P - K^T^T (H P) stay torch.matmul in true
@@ -31,6 +32,13 @@ from openekfmonoslam_tpu_torch.ops import sinv, update_kernel
 DELTA = 1.0e-12
 
 
+def deadbanded(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with the components of magnitude <= DELTA zeroed: the
+    reference's stateUpdate skips those residuals and increments
+    (Update.cpp:133-203)."""
+    return torch.where(torch.abs(v) > DELTA, v, torch.zeros_like(v))
+
+
 def masked_innovation(pred: Prediction, z: torch.Tensor, use: torch.Tensor,
                       n_total: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Residual vector (2F,) and masked dense H (2F, N)."""
@@ -43,18 +51,21 @@ def masked_innovation(pred: Prediction, z: torch.Tensor, use: torch.Tensor,
 def kalman_xp(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
               Sfull: torch.Tensor, uv: torch.Tensor, z: torch.Tensor,
               use: torch.Tensor, pixel_error: float,
-              update_covariance: bool = True, inverse=None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              update_covariance: bool = True, inverse=None,
+              deadband: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(x, P) after the Kalman step, from the shared H P / H P H^T.
 
     Masking rows of H commutes with the products, so the masked versions
     are row/column-masked views; S^-1 is formed explicitly (the reference
     inverts S, Update.cpp:108) and applied as one matmul.  ``inverse``
     (S -> S^-1) defaults to ``sinv.spd_inverse`` with the floor
-    lambda_min(S) >= min(pixelError, 1) that R guarantees."""
+    lambda_min(S) >= min(pixelError, 1) that R guarantees.  ``deadband``
+    applies ``deadbanded`` to the residual and to the increment."""
     dtype = P.dtype
     m = use[:, None].to(dtype)
     res = ((z - uv) * m).reshape(-1)
+    if deadband:
+        res = deadbanded(res)
     use2 = use[:, None].expand(-1, 2).reshape(-1)      # (2F,) row mask
     u2 = use2.to(dtype)
     HP = HP * u2[:, None]
@@ -68,7 +79,10 @@ def kalman_xp(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     else:
         Sinv = inverse(S)
     KT = Sinv @ HP                                     # (2F, N)
-    x = x + KT.T @ res
+    dx = KT.T @ res
+    if deadband:
+        dx = deadbanded(dx)
+    x = x + dx
     if update_covariance:
         P = P - KT.T @ HP                              # (I - K H) P
     return x, P
@@ -91,11 +105,12 @@ def finalize_xp(P: torch.Tensor, x: torch.Tensor, applied: torch.Tensor
 
 def update_chain(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
                  Sfull: torch.Tensor, uv: torch.Tensor, z: torch.Tensor,
-                 use: torch.Tensor, pixel_error: float
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 use: torch.Tensor, pixel_error: float,
+                 deadband: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(x', P') by ``kalman_xp`` + ``finalize_xp``, the route of every
     update the fused kernel does not take."""
-    xk, Pk = kalman_xp(P, x, HP, Sfull, uv, z, use, pixel_error)
+    xk, Pk = kalman_xp(P, x, HP, Sfull, uv, z, use, pixel_error,
+                       deadband=deadband)
     return finalize_xp(Pk, xk, torch.any(use))
 
 
@@ -105,10 +120,8 @@ def kalman_update(state: SlamState, pred: Prediction, z: torch.Tensor,
                   deadband: bool = False) -> SlamState:
     """One joint update step (updateStateAndCovariance, Update.cpp:237-265).
     With no slot used, x and P pass through unchanged."""
-    if deadband:
-        raise NotImplementedError("the reference DELTA deadband is not ported")
     x, P = kalman_xp(state.P, state.x, pred.HP, pred.Sfull, pred.uv, z, use,
-                     pixel_error, update_covariance)
+                     pixel_error, update_covariance, deadband=deadband)
     return state._replace(x=x, P=P)
 
 
@@ -122,13 +135,13 @@ def update(state: SlamState, pred: Prediction, z: torch.Tensor,
            use: torch.Tensor, pixel_error: float,
            deadband: bool = False) -> SlamState:
     """Full joint update + numerics (update, Update.cpp:282-318): the fused
-    CUDA kernel where it applies, ``update_chain`` otherwise."""
-    if deadband:
-        raise NotImplementedError("the reference DELTA deadband is not ported")
+    CUDA kernel where it applies and ``deadband`` is off, ``update_chain``
+    otherwise (with the deadband, always, as JAX at filter/update.py:139)."""
     args = (state.P, state.x, pred.HP, pred.Sfull, pred.uv, z, use,
             float(pixel_error))
-    if update_kernel.update_kernel_applicable(state.P, pred.HP):
+    if not deadband and update_kernel.update_kernel_applicable(state.P,
+                                                               pred.HP):
         x, P = update_kernel.joint_update(*args)
     else:
-        x, P = update_chain(*args)
+        x, P = update_chain(*args, deadband=deadband)
     return state._replace(x=x, P=P)

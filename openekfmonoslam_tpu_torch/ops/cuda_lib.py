@@ -72,7 +72,7 @@ class StarParams(ctypes.Structure):
 # cudaError_t, 0 on success.
 _SIGNATURES = {
     "ekf_predict": [_P, _P, _P, _P, _I, _F, _F, _F, _P],
-    "ekf_measure": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "ekf_measure": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                     ctypes.POINTER(CamParams), _P],
     "ekf_init": [_P, _P, _P, _P, _P, _I, _F, ctypes.POINTER(CamParams), _P],
     "ekf_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
@@ -80,6 +80,7 @@ _SIGNATURES = {
     "ekf_star": [_P, ctypes.POINTER(StarParams), _P, _P, _P, _P],
     "ekf_brief": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
     "ekf_sinv": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
+    "ekf_cholsolve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

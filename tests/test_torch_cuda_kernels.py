@@ -2,7 +2,9 @@
 the main path does not reach: ragged tiles, one slot, several blocks, an S
 too large for shared memory (the update's device-memory inverse), odd
 frame sizes and other STAR and BRIEF settings, the S-inverse from M = 1 to
-640 and cond 1e2 to 1e6.  The filter kernels are held against float64;
+640 and cond 1e2 to 1e6, the measure kernel's quirks variant at F = 1 to
+168, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
+at cond 1e2 to 1e4.  The filter kernels are held against float64;
 STAR and BRIEF must equal their float32 plain versions bit for bit.
 ``chip_smoke.py`` checks the main path's shapes.
 
@@ -18,9 +20,10 @@ import torch
 
 from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
-from openekfmonoslam_tpu_torch.ops import (brief_kernel, init_kernel,
-                                           measure_kernel, predict_kernel,
-                                           sinv, star_kernel, update_kernel)
+from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
+                                           init_kernel, measure_kernel,
+                                           predict_kernel, sinv, star_kernel,
+                                           update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +99,82 @@ def test_measure_kernel(dev, F):
         if a.numel():
             lim = 1e-6 * (a.abs() + max(float(a.abs().max()), 1.0))
             assert bool(((b - a).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("F", [1, 7, 96, 168])
+def test_measure_kernel_quirks_variant(dev, F):
+    """The QUIRKS instantiation against the float64 plain quirks chain, to
+    the measure bound (1e-6 relative); it counts as a quirks launch."""
+    cam7, feats, is_xyz, active = _measure_inputs(
+        np.random.default_rng(F + 1), F, dev)
+    measure_kernel.LAUNCHES.reset()
+    measure_kernel.QUIRKS_LAUNCHES.reset()
+    got = measure_kernel.measure(CAM, cam7, feats, is_xyz, active,
+                                 quirks=True)
+    assert (measure_kernel.LAUNCHES.count,
+            measure_kernel.QUIRKS_LAUNCHES.count) == (0, 1)
+    ref = measure_kernel.measure_plain(CAM, cam7.double(), feats.double(),
+                                       is_xyz, active, quirks=True)
+    correct = measure_kernel.measure_plain(CAM, cam7.double(),
+                                           feats.double(), is_xyz, active)
+    assert torch.equal(got[3], ref[3])
+    m = ref[3]
+    for a, b in zip(ref[:3], got[:3]):
+        a, b = a[m], b[m].double()
+        if a.numel():
+            lim = 1e-6 * (a.abs() + max(float(a.abs().max()), 1.0))
+            assert bool(((b - a).abs() <= lim).all())
+    if int(m.sum()) > 1:        # the variant differs from the correct math
+        assert not torch.allclose(ref[1][m], correct[1][m], rtol=0,
+                                  atol=1e-9)
+
+
+def spd_plus(rng, m, scale=10.0):
+    """tests/test_cholsolve.py ``_spd``: A A^T + scale I."""
+    A = rng.normal(size=(m, m)).astype(np.float32)
+    return A @ A.T + scale * np.eye(m, dtype=np.float32)
+
+
+def _solve_rel_err(X, S, B):
+    want = torch.linalg.solve(S.double(), B.double())
+    return _err(X, want) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("M,K", [(1, 1), (7, 3), (48, 200), (64, 128),
+                                 (65, 1), (192, 640), (336, 1024),
+                                 (640, 1000)])
+@pytest.mark.parametrize("cond", [1e2, 1e3, 1e4])
+def test_cholsolve_kernel(dev, M, K, cond):
+    """The spd_cond matrices within 1e-6 cond relative of the float64
+    solve, and A A^T + 10 I within the JAX kernel test's 1e-4."""
+    rng = np.random.default_rng(M + K)
+    B = _f32(rng.normal(size=(M, K)), dev)
+    S = _f32(spd_cond(M, cond), dev)
+    cholsolve.LAUNCHES.reset()
+    X = cholsolve.chol_solve_cuda(S, B)
+    torch.cuda.synchronize()
+    assert cholsolve.LAUNCHES.count == 1
+    assert X.shape == (M, K) and bool(torch.isfinite(X).all())
+    assert _solve_rel_err(X, S, B) <= 1e-6 * cond
+    S2 = _f32(spd_plus(rng, M), dev)
+    assert _solve_rel_err(cholsolve.chol_solve_cuda(S2, B), S2, B) <= 1e-4
+
+
+def test_solve_spd_routes(dev):
+    """A CUDA float32 S launches the kernel; float64, or force_kernel=False,
+    takes the library Cholesky solve."""
+    rng = np.random.default_rng(0)
+    S = _f32(spd_plus(rng, 96), dev)
+    B = _f32(rng.normal(size=(96, 40)), dev)
+    cholsolve.LAUNCHES.reset()
+    X = cholsolve.solve_spd(S, B)
+    assert cholsolve.LAUNCHES.count == 1
+    assert _solve_rel_err(X, S, B) <= 1e-4
+    cholsolve.solve_spd(S.double(), B.double())
+    cholsolve.solve_spd(S, B, force_kernel=False)
+    assert cholsolve.LAUNCHES.count == 1
+    with pytest.raises(ValueError, match="float32"):
+        cholsolve.chol_solve_cuda(S.double(), B.double())
 
 
 @pytest.mark.parametrize("F,use_frac", [(1, 1.0), (8, 0.5), (96, 0.6),

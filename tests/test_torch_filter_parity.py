@@ -265,17 +265,25 @@ def test_measurements_with_jacobians_and_visibility(scene):
     close(tHf, jHf)
     close(tmf.visibility(tc, T(cam7), T(feats), T(is_xyz), T(active), tuv),
           jmf.visibility(jc, cam7, feats, is_xyz, active, juv))
-    with pytest.raises(NotImplementedError):
-        tmf.measurements_with_jacobians(tc, T(cam7), T(feats), T(is_xyz),
-                                        quirks=True)
+    # the reference's bug-compatible chain, to 1e-12
+    quv, qHc, qHf = jmf.measurements_with_jacobians(jc, cam7, feats, is_xyz,
+                                                    quirks=True)
+    got = tmf.measurements_with_jacobians(tc, T(cam7), T(feats), T(is_xyz),
+                                          quirks=True)
+    for t_, j_ in zip(got, (quv, qHc, qHf)):
+        close(t_, j_, rtol=1e-12, atol=1e-12)
+    close(got[0], tuv, rtol=0, atol=0)           # the same value h(x)
+    assert not np.allclose(got[1].numpy(), np.asarray(jHc))
+    assert not np.allclose(got[2].numpy(), np.asarray(jHf))
 
 
+@pytest.mark.parametrize("quirks", [False, True])
 @pytest.mark.parametrize("layout", ["blocks", "dense"])
-def test_predict_measurements(scene, layout):
+def test_predict_measurements(scene, layout, quirks):
     jp = jmeas.predict_measurements(scene["js"], scene["jcam"],
-                                    hp_layout=layout)
+                                    quirks=quirks, hp_layout=layout)
     tp = tmeas.predict_measurements(scene["ts"], scene["tcam"],
-                                    hp_layout=layout)
+                                    quirks=quirks, hp_layout=layout)
     assert int(np.sum(np.asarray(jp.visible))) >= 5
     for name in jmeas.Prediction._fields:
         close(getattr(tp, name), getattr(jp, name))
@@ -357,6 +365,138 @@ def test_ransac_and_rescue(scene, seed):
           jransac.rescue_outliers(jp2, z, jr.outliers, 5.9915))
     S = np.asarray(jp.S)
     close(transac._solve2x2(T(S), T(z)), jransac._solve2x2(S, z))
+
+
+# ---------------------------------------------------------- parity mode
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("option", ["visit_key", "deadband", "parity_visit",
+                                    "all"])
+def test_ransac_parity_options(scene, seed, option):
+    """Each of the parity arguments of ``ransac`` (and all three) gives the
+    JAX masks, support and visit count exactly; the visit key has ties."""
+    jp, tp, z, matched = _matches(scene, seed, outliers=(1, 4))
+    js, ts = scene["js"], scene["ts"]
+    key = np.random.default_rng(seed).integers(0, 6, F).astype(np.int32)
+    kw = {"visit_key": dict(visit_key=key), "deadband": dict(deadband=True),
+          "parity_visit": dict(parity_visit=True),
+          "all": dict(visit_key=key, deadband=True, parity_visit=True)}[option]
+    args = (1.0, 0.99, 1.0, 1000)
+    jr = jransac.ransac(js, jp, jnp.asarray(z), jnp.asarray(matched),
+                        scene["jcam"], *args,
+                        **{k: jnp.asarray(v) if k == "visit_key" else v
+                           for k, v in kw.items()})
+    tr = transac.ransac(ts, tp, T(z), T(matched), scene["tcam"], *args,
+                        **{k: T(v) if k == "visit_key" else v
+                           for k, v in kw.items()})
+    for name in jransac.RansacResult._fields:
+        close(getattr(tr, name), getattr(jr, name))
+    if option == "deadband":
+        close(transac._batched_state_only_updates(ts, tp, T(z), T(matched),
+                                                  1.0, deadband=True),
+              jransac._batched_state_only_updates(js, jp, z, matched, 1.0,
+                                                  deadband=True))
+
+
+def _scan_cases():
+    """(support, matched, p, max_hypotheses) cases: random supports with
+    ties, and the edges (all-zero support, e <= 0, e >= 1, one match, no
+    match, support above the match count)."""
+    rng = np.random.default_rng(2024)
+    cases = []
+    for k in range(200):
+        n = int(rng.choice([1, 3, 8, 17, 40]))
+        matched = rng.random(n) < rng.uniform(0.2, 1.0)
+        support = rng.integers(0, max(int(matched.sum()), 1) + 1, n)
+        if k % 5 == 0:
+            support = rng.integers(0, 3, n)                 # many ties
+        p = float(rng.choice([0.99, 0.5, 0.999, 0.9]))
+        cases.append((support, matched, p, int(rng.choice([1000, 96, 3]))))
+    n = 12
+    cases += [
+        (np.zeros(n, int), np.ones(n, bool), 0.99, 1000),   # e >= 1
+        (np.full(n, n), np.ones(n, bool), 0.99, 1000),      # e <= 0
+        (np.full(n, 2 * n), rng.random(n) < 0.5, 0.99, 1000),
+        (np.arange(n), np.eye(n, dtype=bool)[5], 0.99, 1000),   # one match
+        (np.arange(n), np.zeros(n, bool), 0.99, 1000),       # no match
+        (np.array([9, 9, 10, 10, 3, 10]), np.ones(6, bool), 0.99, 1000),
+        (np.array([1, 2, 3, 4, 5, 6]), np.ones(6, bool), 0.99, 1),
+    ]
+    return cases
+
+
+def test_adaptive_visit_scan_equals_the_jax_scan():
+    # one compile per length: p and the hypothesis cap go in as values
+    jscan = jax.jit(jransac._adaptive_visit_scan)
+    for i, (support, matched, p, mh) in enumerate(_scan_cases()):
+        want = jscan(jnp.asarray(support, jnp.int32), jnp.asarray(matched),
+                     jnp.float64(p), jnp.int32(mh))
+        got = transac._adaptive_visit_scan(
+            torch.tensor(support, dtype=torch.int32), T(matched), p, mh)
+        assert [int(g) for g in got] == [int(w) for w in want], (
+            i, support, matched, p, mh)
+        assert all(g.dtype == torch.int32 and g.dim() == 0 for g in got)
+
+
+@pytest.mark.parametrize("threshold", [1e9, 0.0, 0.05])
+def test_conversion_candidate_order_key(scene, threshold):
+    js, ts = scene["js"], scene["ts"]
+    key = np.random.default_rng(4).permutation(F).astype(np.int32)
+    jd, jslot = jmap.conversion_candidate(js, threshold,
+                                          order_key=jnp.asarray(key))
+    td, tslot = tmap.conversion_candidate(ts, threshold, order_key=T(key))
+    close(td, jd)
+    close(tslot, jslot)
+    jc = jmap.convert_one_to_xyz(js, threshold, enable=jnp.asarray(True),
+                                 order_key=jnp.asarray(key))
+    tc = tmap.convert_one_to_xyz(ts, threshold, enable=torch.tensor(True),
+                                 order_key=T(key))
+    got = tstate.state_to_numpy(tc)
+    for name in jstate.SlamState._fields:
+        close(got[name], getattr(jc, name))
+
+
+def test_kalman_update_deadband(scene):
+    """Residual components of +-1e-13 are zeroed, +-1e-11 kept; with only
+    the former used, the deadband leaves x exactly as it was."""
+    jp, tp, _, use = _matches(scene, 0)
+    js, ts = scene["js"], scene["ts"]
+    uv = np.asarray(jp.uv)
+    tiny = np.array([1e-13, -1e-13, 1e-11, -1e-11])[np.arange(2 * F)
+                                                      % 4].reshape(F, 2)
+    z = uv + tiny
+    for u in (use, use & (np.arange(F) % 2 == 0)):
+        jk = jupd.kalman_update(js, jp, z, u, 1.0, deadband=True)
+        tk = tupd.kalman_update(ts, tp, T(z), T(u), 1.0, deadband=True)
+        close(tk.x, jk.x)
+        close(tk.P, jk.P)
+    z0 = uv + tiny * (np.abs(tiny) < 1e-12)
+    tk = tupd.kalman_update(ts, tp, T(z0), T(use), 1.0, deadband=True)
+    assert torch.equal(tk.x, ts.x)
+    assert not torch.equal(tupd.kalman_update(ts, tp, T(z0), T(use),
+                                              1.0).x, ts.x)
+
+
+def test_update_deadband_takes_the_chain(scene, monkeypatch):
+    """update(deadband=True) equals JAX and never takes the fused kernel,
+    even where the kernel applies (as JAX at filter/update.py:139)."""
+    from openekfmonoslam_tpu_torch.ops import update_kernel
+
+    jp, tp, z, use = _matches(scene, 1)
+    js, ts = scene["js"], scene["ts"]
+    want = jupd.update(js, jp, z, use, 1.0, deadband=True)
+    monkeypatch.setattr(update_kernel, "update_kernel_applicable",
+                        lambda P, HP: True)
+
+    def fused(*args):
+        raise AssertionError("the fused update was called")
+
+    monkeypatch.setattr(update_kernel, "joint_update", fused)
+    got = tupd.update(ts, tp, T(z), T(use), 1.0, deadband=True)
+    close(got.x, want.x)
+    close(got.P, want.P)
+    with pytest.raises(AssertionError, match="fused"):
+        tupd.update(ts, tp, T(z), T(use), 1.0)
 
 
 # ------------------------------------------------------------- features

@@ -25,7 +25,8 @@ def test_every_port_module_imports_without_jax():
                  "vision.star", "vision.brief", "ops.star_kernel",
                  "ops.brief_kernel", "io.sources", "eval.replay",
                  "engine.engine", "engine.checkpoint", "eval.trajectory",
-                 "eval.result_reader", "cli", "ops.sinv"):
+                 "eval.result_reader", "cli", "ops.sinv", "ops.cholsolve",
+                 "eval.oracle", "eval.compare"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

@@ -133,6 +133,40 @@ def test_measure_plain_matches_jax_chain(dtype):
                                        atol=1e-6 * max(np.abs(a).max(), 1.0))
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_measure_plain_quirks_matches_jax_chain(dtype):
+    """The quirks flag of ``measure``: its plain version is the JAX quirks
+    chain, and a CPU tensor takes it without a launch of either variant."""
+    jd, td = DTYPES[dtype]
+    feats, is_xyz, active, cam7 = _measure_scene(np.random.default_rng(6))
+    jc = JCamera.from_calibration(JCal(), jd)
+    tc = TCamera.from_calibration(TCal())
+    want = jmf.measurements_with_jacobians(
+        jc, jnp.asarray(cam7, jd), jnp.asarray(feats, jd), is_xyz,
+        quirks=True)
+    args = (tc, torch.tensor(cam7, dtype=td), torch.tensor(feats, dtype=td),
+            torch.tensor(is_xyz), torch.tensor(active))
+    measure_kernel.LAUNCHES.reset()
+    measure_kernel.QUIRKS_LAUNCHES.reset()
+    got = measure_kernel.measure(*args, quirks=True)
+    for a, b in zip(got, measure_kernel.measure_plain(*args, quirks=True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (measure_kernel.LAUNCHES.count,
+            measure_kernel.QUIRKS_LAUNCHES.count) == (0, 0)
+    m = _np(got[3])
+    assert m.sum() >= F // 2
+    for a, b in zip(want, got[:3]):
+        a, b = np.asarray(a)[m], _np(b)[m]
+        if dtype == "float64":
+            np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-6,
+                                       atol=1e-6 * max(np.abs(a).max(), 1.0))
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        measure_kernel.measure_cuda(*args, quirks=True)
+    assert measure_kernel.QUIRKS_LAUNCHES.count == 0
+
+
 def _update_problem(rng, use_frac):
     P, x = _state_arrays(rng)
     H = rng.standard_normal((2 * F, N)) * 0.05
@@ -293,9 +327,10 @@ def test_runtime_without_device_needs_cuda(monkeypatch):
     # defaults to FAST
     with pytest.raises(NotImplementedError, match="not ported yet"):
         rt.step(rt.make_initial_state(), np.zeros((48, 64), np.uint8))
-    with pytest.raises(NotImplementedError):
-        tstep.SlamRuntime(dataclasses.replace(TConfig(),
-                                              reference_quirks=True), "cpu")
+    # the parity mode is ported: it builds on the CPU as on the card
+    assert tstep.SlamRuntime(dataclasses.replace(TConfig(),
+                                                 reference_quirks=True),
+                             "cpu").quirks
 
 
 def test_cam_params_mirror_the_cuda_struct():

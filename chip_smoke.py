@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA
                                  # device and the CUDA toolkit (nvcc)
+    python3 chip_smoke.py --kernels-only    # phases 1 and 2 alone
+    python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
+                                 # agreement at other scenes (phase 1 first)
 
 Phases, each of which passes or raises (the script then exits non-zero):
 
@@ -10,12 +13,14 @@ Phases, each of which passes or raises (the script then exits non-zero):
               parallel) into build/torch_kernels/ and load the library;
   2. kernels  each hand-written kernel at the main path's shapes (N = 640,
               F = 96, 2F = 192, C = 96) against its plain PyTorch version
-              run in float64 on the card, plus the update's S^-1 against a
-              float64 Cholesky inverse, the no-use bit-exact pass-through
-              and the symmetry of P' (the update also on the path's own
-              frame-T/2 data, in phase 3); then each kernel's device time (CUDA
-              graph of 200 launches), its eager time, the plain version's
-              time and its bound;
+              run in float64 on the card, plus the factor the update used
+              (L L^T against the float64 masked S), the no-use bit-exact
+              pass-through and the exact symmetry of P' (the update also
+              on the path's own frame-T/2 data, in phase 3); then each
+              kernel's device time (CUDA graph of 200 launches), its eager
+              time, the plain version's time and its bound, and for the
+              update and the S-inverse each launch's device time by kernel
+              name under torch.profiler;
   3. path     SlamRuntime(SlamConfig()) on the card at full s3 width: a
               closed-loop synthetic scene records an injection log (about
               160 points, a smooth camera path, 1 px noise, 5% outliers),
@@ -127,7 +132,8 @@ from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            cuda_lib, init_kernel,
                                            measure_kernel, predict_kernel,
-                                           sinv, star_kernel, update_kernel)
+                                           sinv, spd_core, star_kernel,
+                                           update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 ROOT = Path(__file__).resolve().parent
@@ -187,13 +193,14 @@ LIVE_HW = (480, 640)    # the s3 frame size
 GRAPH_REPS = 200        # kernel launches per timed CUDA graph
 EAGER_REPS = 200        # eager kernel launches per timing
 PLAIN_REPS = 50         # plain-version calls per timing
+SPLIT_REPS = 50         # calls per profiled split of a row by kernel name
 
 # bounds of the kernel checks (float32 kernel vs float64 plain version)
 TOL = {
     "predict_x": 1e-6, "predict_P": 1e-4,
     "measure_rtol": 1e-6,            # plus 1e-6 * max(|a|, 1) absolute
     "update_x": 5e-5, "update_P": 5e-4, "update_sym": 1e-5,
-    "sinv_rel": 1e-4,
+    "update_factor_rel": 1e-4,      # L L^T of the update's factor vs S
     "init_feats": 1e-5, "init_J1": 2e-2, "init_J2": 1e-4,
     # tests/test_cholsolve.py:32 on A A^T + 10 I; 1e-6 cond on spd_cond
     "chol_rel": 1e-4,
@@ -282,8 +289,32 @@ def phase_times(averages, frames: int, prefix: str = PHASE_PREFIX) -> dict:
     return out
 
 
+def device_ms(averages, frames: int) -> float:
+    """Device ms a frame of everything the profiler saw run on the card:
+    PyTorch's kernels, the hand-written kernels launched through ctypes,
+    memsets and copies.  The step's phase ranges also appear on the device
+    timeline (as annotations spanning their kernels) and are left out."""
+    return sum(e.device_time_total for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith((PHASE_PREFIX, LIVE_PHASE_PREFIX))) \
+        / 1e3 / frames
+
+
 # device kernels of the hand-written STAR and BRIEF functions, by name
 LIVE_KERNEL_NAMES = ("star_resp", "star_score", "star_nms", "brief_planes")
+# ... of the S-inverse (csrc/sinv.cu) and of the fused update (update.cu)
+SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
+                     "sinv_product<0>", "sinv_product<1>", "sinv_product<2>")
+UPDATE_KERNEL_NAMES = ("update_factor", "update_solve", "update_downdate")
+
+
+def print_device(dev_ms: float, kernels_us: dict) -> None:
+    print(f"  device ms a frame under the profiler (all kernels): "
+          f"{dev_ms:.4f}" + "".join(
+              f"; {k} {v['us_per_frame']:.2f} us a frame, "
+              f"{v['calls_per_frame']:.2f} calls" for k, v in
+              kernels_us.items()), flush=True)
 
 
 def kernel_device_us(averages, frames: int,
@@ -343,6 +374,24 @@ def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
     b.synchronize()
     del graph
     return a.elapsed_time(b) / reps
+
+
+def device_split_us(fn, reps: int = SPLIT_REPS) -> dict:
+    """{device kernel name: device us a call of ``fn``} under
+    torch.profiler over ``reps`` eager calls after a warm-up: the split of
+    a wrapper's launches by kernel name."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            e.device_time_total / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0}
 
 
 def count_syncs(fn) -> tuple[collections.Counter, float]:
@@ -434,19 +483,30 @@ def _masked_S(Sfull: torch.Tensor, use: torch.Tensor, pixel_error: float):
     return Sfull * (u2[:, None] * u2[None, :]) + torch.diag(r)
 
 
+def update_flops(Mu: int, N: int) -> float:
+    """The operations the update needs on Mu used rows of a state of N:
+    only those rows of HP and S carry data.  In factored form, counted in
+    multiply-adds: Cholesky of S_u (Mu^3 / 6), V = L^-1 HP_u (Mu^2 N / 2),
+    the downdate V^T V on one triangle (Mu N^2 / 2: P' is symmetric), y
+    and dx = V^T y (Mu^2 / 2 + Mu N); two operations each."""
+    return 2 * (Mu ** 3 / 6 + Mu * Mu * N / 2 + Mu * N * N / 2
+                + Mu * Mu / 2 + Mu * N)
+
+
 def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
-    """The update kernel against its float64 plain version and its S^-1
-    against a float64 Cholesky inverse; returns the errors."""
-    x_k, P_k, Sinv_k = update_kernel.joint_update_cuda(P, x, HP, Sfull, uv,
+    """The update kernel against its float64 plain version, and the factor
+    it used against the float64 masked S (L L^T); returns the errors."""
+    x_k, P_k, factor = update_kernel.joint_update_cuda(P, x, HP, Sfull, uv,
                                                        z, use, pe)
     d = [a.double() for a in (P, x, HP, Sfull, uv, z)]
     x_t, P_t = update_kernel.update_plain(*d, use, pe)
     S64 = _masked_S(d[3], use, pe)
-    inv64 = sinv.spd_inverse(S64)
+    L = spd_core.dense_factor(factor, S64.shape[0])
     eig = torch.linalg.eigvalsh(S64)
     e = {"x": max_abs(x_k, x_t), "P": max_abs(P_k, P_t),
          "sym": max_abs(P_k, P_k.T),
-         "sinv_rel": max_abs(Sinv_k, inv64) / float(inv64.abs().max()),
+         "factor_rel": max_abs(L @ L.T, S64) / float(S64.abs().max()),
+         "pivots": int(factor.meta[1]),
          "cond_S": float(eig.max() / eig.min()),
          "used_rows": int(use.sum()) * 2}
     check(failures, e["x"] <= TOL["update_x"],
@@ -455,9 +515,11 @@ def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
           f"update[{tag}] P err {e['P']:.3e} <= {TOL['update_P']}")
     check(failures, e["sym"] <= TOL["update_sym"],
           f"update[{tag}] max|P'-P'^T| {e['sym']:.3e} <= {TOL['update_sym']}")
-    check(failures, e["sinv_rel"] <= TOL["sinv_rel"],
-          f"update[{tag}] S^-1 rel err {e['sinv_rel']:.3e} <= "
-          f"{TOL['sinv_rel']} (cond(S) {e['cond_S']:.3e})")
+    check(failures, e["factor_rel"] <= TOL["update_factor_rel"]
+          and e["pivots"] == 0,
+          f"update[{tag}] factor: L L^T rel err {e['factor_rel']:.3e} <= "
+          f"{TOL['update_factor_rel']}, {e['pivots']} non-positive pivots "
+          f"({e['used_rows']} used rows, cond(S) {e['cond_S']:.3e})")
     return e
 
 
@@ -608,14 +670,11 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
                                                   none, pe)
     check(failures, torch.equal(x_n, x) and torch.equal(P_n, P),
           "update with no slot used returns x and P bit-identical")
-    # the work the function needs on this run's data: only the Mu used rows
-    # of HP and S carry data; S^-1 (Mu^3 multiply-adds), W = S^-1 HP, the
-    # downdate D = HP^T W once (D^T is the same numbers) and dx = W^T res
     Mu = int(use.sum()) * 2
     rows["update"] = dict(
-        max_abs_err=max(e["x"], e["P"]), checks=e,
+        max_abs_err=max(e["x"], e["P"]), checks=e, split=True,
         bytes=4 * (2 * N * N + 2 * N + Mu * N + Mu * Mu + 4 * F) + F,
-        flops=2 * Mu ** 3 + 2 * Mu * Mu * N + 2 * Mu * N * N + 2 * Mu * N,
+        flops=update_flops(Mu, N),
         kernel=lambda: update_kernel.joint_update(P, x, HP, Sfull, uv, z,
                                                   use, pe),
         plain=lambda: update_kernel.update_plain(P, x, HP, Sfull, uv, z,
@@ -673,14 +732,12 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
              for cond in SINV_CONDS] + [(336, "masked", masked_s(336))]
     for m, cond, s_np in cases:
         S = torch.tensor(s_np, **f32)
-        rel, err, steps = check_sinv(failures, f"M {m} cond {cond}", S,
-                                     1.0, sinv_limit(cond))
+        rel, err, info = check_sinv(failures, f"M {m} cond {cond}", S,
+                                    sinv_limit(cond))
         sinv_checks.append(dict(M=m, cond=cond, rel_err=rel, abs_err=err,
-                                rescue_steps=steps))
-    check(failures, any(c["rescue_steps"] > 0 for c in sinv_checks),
-          "the S-inverse's rescue branch ran on at least one case")
+                                info=info))
     S336 = torch.tensor(spd_cond(336, 1e2), **f32)
-    rows["sinv_spd336"] = sinv_row(S336, 1.0, max(
+    rows["sinv_spd336"] = sinv_row(S336, max(
         c["abs_err"] for c in sinv_checks if c["M"] == 336))
 
     # ---- cholsolve: X = S^-1 B against the float64 solve (its own
@@ -734,11 +791,10 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
               f"{tag}: x err {ex:.3e} <= {TOL['update_x']}, P err "
               f"{eP:.3e} <= {TOL['update_P']}")
         rows[tag] = dict(
-            max_abs_err=max(ex, eP),
+            max_abs_err=max(ex, eP), split=tag == "update_fused_n1024",
             bytes=4 * (2 * Nl * Nl + 2 * Nl + Mu * Nl + Mu * Mu + 4 * Fl)
             + Fl,
-            flops=(2 * Mu ** 3 + 2 * Mu * Mu * Nl + 2 * Mu * Nl * Nl
-                   + 2 * Mu * Nl),
+            flops=update_flops(Mu, Nl),
             kernel=lambda fn=fn: fn(*argsl),
             plain=lambda: update_kernel.update_plain(*argsl))
     rows["sinv_spd336"]["checks"] = sinv_checks
@@ -761,6 +817,11 @@ def time_row(name: str, row: dict) -> None:
     row["library_ms"] = (events_ms(library, EAGER_REPS)
                          if library is not None else None)
     row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"])
+    if row.pop("split", False):
+        row["split_us"] = device_split_us(row["kernel"])
+        print(f"  {name} by kernel under the profiler (device us a call): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in row["split_us"].items()),
+              flush=True)
     lib = ("" if row["library_ms"] is None
            else f", library {row['library_ms'] * 1e3:.2f} us")
     print(f"  {name}: {row['ms'] * 1e3:.2f} us/launch on the device "
@@ -802,22 +863,21 @@ def sinv_limit(cond) -> float:
     return 1e-4 if cond == "masked" else 3e-5 * max(cond / 1e2, 1.0)
 
 
-def check_sinv(failures, tag, S, lam_floor, limit
-               ) -> tuple[float, float, int]:
+def check_sinv(failures, tag, S, limit) -> tuple[float, float, int]:
     """The S-inverse kernel on S against the float64 inverse; returns the
-    relative and absolute errors and the rescue steps taken."""
-    X, steps = sinv.sinv_cuda(S, lam_floor)
+    relative and absolute errors and the info word (non-positive
+    pivots, which must be 0)."""
+    X, info = sinv.sinv_cuda(S)
     want = torch.linalg.inv(S.double())
     err = max_abs(X, want)
     rel = err / float(want.abs().max())
-    steps = int(steps)
-    check(failures, rel <= limit,
-          f"sinv[{tag}] rel err {rel:.3e} <= {limit:.1e} ({steps} rescue "
-          f"steps)")
-    return rel, err, steps
+    info = int(info)
+    check(failures, rel <= limit and info == 0,
+          f"sinv[{tag}] rel err {rel:.3e} <= {limit:.1e}, info {info} == 0")
+    return rel, err, info
 
 
-def sinv_row(S: torch.Tensor, lam_floor: float, err: float) -> dict:
+def sinv_row(S: torch.Tensor, err: float) -> dict:
     """A kernel-table row for the S-inverse on S: its bound counts S in
     and S^-1 out, and the Mu^3 operations of an SPD inverse over the Mu
     rows that are not identity rows."""
@@ -826,8 +886,9 @@ def sinv_row(S: torch.Tensor, lam_floor: float, err: float) -> dict:
     Mu = int(((S - eye).abs().sum(dim=1) > 0).sum())
     return dict(
         max_abs_err=err, M=M, used_rows=Mu, bytes=8 * M * M, flops=Mu ** 3,
-        kernel=lambda: sinv.sinv_cuda(S, lam_floor),
-        plain=lambda: sinv.ns_inverse(S, lam_floor),
+        split=True,
+        kernel=lambda: sinv.sinv_cuda(S),
+        plain=lambda: sinv.cholesky_inverse(S),
         library=lambda: torch.linalg.inv(S))
 
 
@@ -1038,11 +1099,15 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         replay.run_uploaded(runtime, ulog)
         torch.cuda.synchronize()
-    phase_ms = phase_times(prof.key_averages(), T_FRAMES)
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, T_FRAMES)
+    dev_ms = device_ms(averages, T_FRAMES)
+    update_us = kernel_device_us(averages, T_FRAMES, UPDATE_KERNEL_NAMES)
     print("  per-phase ms/frame under the profiler (host, device of "
           "PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
                       for k, v in phase_ms.items()), flush=True)
+    print_device(dev_ms, update_us)
 
     T = T_FRAMES
     check(failures, launches["predict"] == T, f"predict launches {T}")
@@ -1071,7 +1136,8 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
     return dict(runtime=runtime, log=log, records=records, state=state,
                 launches=launches, fps=fps, elapsed_s=elapsed,
                 syncs=syncs, fps_second=T_FRAMES / elapsed2,
-                phase_ms=phase_ms, record_s=record_s,
+                phase_ms=phase_ms, device_ms=dev_ms,
+                update_kernels_us=update_us, record_s=record_s,
                 sync_sites=dict(sync_sites),
                 healthy=healthy, mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -1129,6 +1195,42 @@ def phase_replay(path: dict, failures: list) -> dict:
           f"visibility masks identical on >= {REPLAY_MASKS_SAME} of frames")
     return dict(cpu_s=cpu_s, sigma_final=float(sigma[-1]),
                 sigma_per_frame=sigma.tolist(), **agree)
+
+
+def replay_margin(cfg: SlamConfig, seeds: list, T: int = T_FRAMES,
+                  device=None) -> list:
+    """Phase 4's float64 agreement on other scenes, to read how far it is
+    from its bound: for each seed s, record the closed loop on the card
+    (the scene made from s, the log from s + 4; s = 7 is phase 3's pair)
+    and replay its log in float64 on the CPU.  Reports, for each seed, the
+    deviation, the masks, the frames whose inlier mask differs and the
+    deviation on the frame before the first of them; checks nothing."""
+    runtime = SlamRuntime(cfg, device=device)
+    rt64 = SlamRuntime(SlamConfig(dtype="float64"), device="cpu")
+    out = []
+    for s in seeds:
+        scene = Scene(runtime.camera, np.random.default_rng(s))
+        log, _, recs, _ = record_log(runtime, scene, T, seed=s + 4)
+        _, recs64 = replay.replay_records(rt64, log)
+        card_inl = [r.inliers.cpu().numpy() for r in recs]
+        agree = against_float64(
+            np.stack([r.x_cam.double().cpu().numpy() for r in recs]),
+            card_inl, [r.visible.cpu().numpy() for r in recs], recs64)
+        flips = [t + 1 for t, (a, b) in enumerate(zip(card_inl, recs64))
+                 if not np.array_equal(a, b.inliers.numpy())]
+        dev = agree.pop("dev_per_frame")
+        before = dev[flips[0] - 2] if flips and flips[0] > 1 else None
+        row = dict(seed=s, inlier_flip_frames=flips,
+                   dev_before_first_flip=before, **agree)
+        out.append(row)
+        print(f"  seed {s}: deviation max {row['dev_max']:.3e} (frame "
+              f"{row['worst_frame']}), mean {row['dev_mean']:.3e}; inlier "
+              f"masks identical on {row['inliers_same']:.3f} of frames, "
+              f"visibility on {row['visible_same']:.3f}; inlier flips at "
+              f"frames {flips}, deviation before the first "
+              f"{before if before is None else f'{before:.3e}'}",
+              flush=True)
+    return out
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1225,11 +1327,10 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
           "PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
                       for k, v in phase_ms.items()), flush=True)
-    vision_us = kernel_device_us(averages, S)
-    print("  STAR and BRIEF device kernels under the profiler (us a frame, "
-          "calls a frame): "
-          + ", ".join(f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
-                      for k, v in vision_us.items()), flush=True)
+    vision_us = kernel_device_us(averages, S,
+                                 LIVE_KERNEL_NAMES + UPDATE_KERNEL_NAMES)
+    dev_ms = device_ms(averages, S)
+    print_device(dev_ms, vision_us)
 
     # STAR and BRIEF on frame T/2's own image
     mid = check_star_brief(failures, f"frame {T // 2}", gpu_frames[T // 2],
@@ -1266,6 +1367,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                 syncs=syncs, syncs_per_frame=syncs / S,
                 sync_sites=dict(sites), fps_sync_debug=S / sync_s,
                 phase_ms=phase_ms, vision_kernels_us=vision_us,
+                device_ms=dev_ms,
                 healthy=healthy,
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -1423,7 +1525,9 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
                       for k, v in phase_ms.items()), flush=True)
     kernel_us = kernel_device_us(averages, LARGE_CKPT_AT,
-                                 LIVE_KERNEL_NAMES + ("sinv_ns",))
+                                 LIVE_KERNEL_NAMES + SINV_KERNEL_NAMES)
+    dev_ms = device_ms(averages, LARGE_CKPT_AT)
+    print_device(dev_ms, {})
     print("  hand-written device kernels under the profiler (us a frame, "
           "calls a frame): "
           + ", ".join(f"{k} {v['us_per_frame']:.2f} {v['calls_per_frame']:.2f}"
@@ -1490,14 +1594,15 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     S_path = _masked_S(pred.Sfull, use, pe).contiguous()
     eig = torch.linalg.eigvalsh(S_path.double())
     cond = float(eig.max() / eig.min())
-    rel, err, steps = check_sinv(failures, f"frame {LARGE_CKPT_AT + 1}",
-                                 S_path, min(pe, 1.0), sinv_limit(cond))
-    row = sinv_row(S_path, min(pe, 1.0), err)
-    row.update(rel_err=rel, cond=cond, rescue_steps=steps)
+    rel, err, info = check_sinv(failures, f"frame {LARGE_CKPT_AT + 1}",
+                                 S_path, sinv_limit(cond))
+    row = sinv_row(S_path, err)
+    row.update(rel_err=rel, cond=cond, info=info)
     return dict(launches=launches, fps=fps, elapsed_s=elapsed,
                 F=F, N=N, syncs=syncs, syncs_per_frame=syncs / S,
                 sync_sites=dict(sites), fps_sync_debug=S / sync_s,
-                phase_ms=phase_ms, kernels_us=kernel_us, healthy=healthy,
+                phase_ms=phase_ms, kernels_us=kernel_us, device_ms=dev_ms,
+                healthy=healthy,
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
                 mean_active=float(active.mean()),
@@ -1629,8 +1734,10 @@ def phase_parity(cfg: SlamConfig, path: dict, failures: list) -> dict:
         torch.cuda.synchronize()
     averages = prof.key_averages()
     phase_ms = phase_times(averages, K)
-    kernel_us = kernel_device_us(averages, K, ("sinv_ns",
-                                               "measure_kernel<true>"))
+    kernel_us = kernel_device_us(averages, K, SINV_KERNEL_NAMES + (
+                                               "measure_kernel<true>",))
+    dev_ms = device_ms(averages, K)
+    print_device(dev_ms, {})
     print(f"  per-phase ms/frame under the profiler over {K} frames (host, "
           "device of PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
@@ -1681,6 +1788,7 @@ def phase_parity(cfg: SlamConfig, path: dict, failures: list) -> dict:
         fps=fps, elapsed_s=elapsed, launches=launches, syncs=syncs,
         sync_sites=dict(sites), fps_sync_debug=T / sync_s,
         profiled_frames=K, phase_ms=phase_ms, kernels_us=kernel_us,
+        device_ms=dev_ms,
         visit_scan=scan, cpu_s=cpu_s,
         float64=agree,
         oracle=dict(frames=n_orc, seconds=orc_s, ate=ate, path=path_len,
@@ -1752,7 +1860,9 @@ def parity_engine(failures: list, T: int = T_PARITY_LIVE) -> dict:
     averages = prof.key_averages()
     phase_ms = phase_times(averages, K, LIVE_PHASE_PREFIX)
     kernel_us = kernel_device_us(averages, K, LIVE_KERNEL_NAMES + (
-        "sinv_ns", "measure_kernel<true>"))
+        *SINV_KERNEL_NAMES, "measure_kernel<true>"))
+    dev_ms = device_ms(averages, K)
+    print_device(dev_ms, {})
     print(f"  per-phase ms/frame under the profiler over {K} steps (host, "
           "device of PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
@@ -1786,14 +1896,15 @@ def parity_engine(failures: list, T: int = T_PARITY_LIVE) -> dict:
     return dict(fps=fps, elapsed_s=elapsed, launches=launches, syncs=syncs,
                 syncs_per_frame=syncs / S, sync_sites=dict(sites),
                 fps_sync_debug=S / sync_s, profiled_steps=K,
-                phase_ms=phase_ms, kernels_us=kernel_us, healthy=healthy,
+                phase_ms=phase_ms, kernels_us=kernel_us, device_ms=dev_ms,
+                healthy=healthy,
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()), cpu_s=cpu_s, float64=agree)
 
 
 # ------------------------------------------------------------------- main
 
-def main() -> int:
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the GPU", file=sys.stderr)
@@ -1811,7 +1922,24 @@ def main() -> int:
     camera = cam_mod.Camera.from_calibration(cfg.camera)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--replay-seeds" in argv:
+        # phase 4's margin on other scenes alone, no result line
+        seeds = [int(v) for v in
+                 argv[argv.index("--replay-seeds") + 1].split(",")]
+        print(f"== float64 agreement of the replay path at seeds {seeds}",
+              flush=True)
+        margin = replay_margin(cfg, seeds)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "replay_margin.json").write_text(json.dumps(margin, indent=1))
+        print(f"replay seeds: {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        return 0
     rows = phase_kernels(cfg, camera, SlamRuntime(live_cfg).frontend)
+    if "--kernels-only" in argv:
+        # phases 1-2 alone: the kernels' checks and times, no result line
+        print(f"kernels only: {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        return 0
 
     failures: list = []
     path = phase_path(cfg, failures)
@@ -1903,4 +2031,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

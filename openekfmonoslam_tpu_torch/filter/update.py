@@ -12,7 +12,7 @@ fused CUDA joint-update kernel (ops/update_kernel.py) where
 ``update_kernel_applicable`` holds (the s3 map, N = 640) and the DELTA
 deadband is off, and otherwise the chain below (every update of the parity
 mode, whatever the shape), ``kalman_xp`` + ``finalize_xp``, whose S^-1 is
-``ops/sinv.spd_inverse`` (the Newton-Schulz kernel on the card up to
+``ops/sinv.spd_inverse`` (the S-inverse kernels on the card up to
 2F = 512; the large map, N = 1024 and 2F = 336, takes it).  The chain's
 products K^T = S^-1 (H P) and P - K^T^T (H P) stay torch.matmul in true
 fp32, as the JAX package leaves them to XLA.

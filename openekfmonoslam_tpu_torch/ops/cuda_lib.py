@@ -75,11 +75,10 @@ _SIGNATURES = {
     "ekf_measure": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                     ctypes.POINTER(CamParams), _P],
     "ekf_init": [_P, _P, _P, _P, _P, _I, _F, ctypes.POINTER(CamParams), _P],
-    "ekf_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                   _P],
+    "ekf_update": [_P] * 16 + [_I, _I, _F, _P],
     "ekf_star": [_P, ctypes.POINTER(StarParams), _P, _P, _P, _P],
     "ekf_brief": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
-    "ekf_sinv": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
+    "ekf_sinv": [_P] * 11 + [_I, _P],
     "ekf_cholsolve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 

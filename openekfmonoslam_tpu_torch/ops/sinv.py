@@ -1,20 +1,34 @@
 """SPD inverses for the joint update (port of ops/sinv.py).
 
-``sinv_cuda`` launches the hand-written Newton-Schulz kernel
-(``csrc/sinv.cu``), which replaces the TPU kernel ``_sinv_kernel`` /
-``sinv_pallas`` (openekfmonoslam_tpu/ops/sinv.py:169,177).  ``ns_inverse``
-is its plain PyTorch version; ``newton_schulz_inverse`` is the wrapper: a
-CPU tensor runs ``ns_inverse``, a CUDA tensor launches the kernel or
-raises.
+``sinv_cuda`` launches the hand-written S-inverse kernels
+(``csrc/sinv.cu`` over ``csrc/spd_core.cuh``), which replace the TPU kernel
+``_sinv_kernel`` / ``sinv_pallas`` (openekfmonoslam_tpu/ops/sinv.py:169,
+177).  They compute the same function, S^-1 of an SPD S, by another
+method: the rows of S that are exact identity rows (every unused row of
+the update's masked S) are left out, the others compacted on the device
+and factored by a blocked Cholesky in one CTA; W = L^-1 comes from
+triangular solves in column slabs across CTAs, X = W^T W, and one step
+X + X (I - S X) whose residual is summed in twice the working precision
+(the Newton-Schulz kernel's last polish step) refines it.  A memset and
+six launches on one stream, no host synchronisation.  The kernels' plain
+version is ``cholesky_inverse``; ``tests/test_torch_spd_core.py`` follows
+their steps in PyTorch.
 
-``spd_inverse`` routes as the JAX package does (ops/sinv.py:215-225): a
-CUDA float32 S with M <= 512 takes the kernel, anything else Cholesky
-against I (``cholesky_inverse``, a library call, as the JAX package leaves
-it to XLA outside any Pallas kernel).  On the card the Cholesky path does
-not read back to the host: ``cholesky_ex`` skips the error check that
+``ns_inverse`` is the port of the JAX package's Newton-Schulz math
+(``ns_inverse_into``, with its residual-gated rescue), held against JAX by
+the tests; no kernel runs it.
+
+``newton_schulz_inverse`` (the name of the S-inverse wrapper since the
+kernel iterated Newton-Schulz) and ``spd_inverse`` are the wrappers: a CPU
+tensor runs ``cholesky_inverse``, a CUDA tensor launches the kernels or
+raises.  ``spd_inverse`` routes as the JAX package does (ops/sinv.py:
+215-225): a CUDA float32 S with M <= 512 takes the kernels, anything else
+``cholesky_inverse`` (a library call, as the JAX package leaves it to XLA
+outside any Pallas kernel).  On the card that path does not read back to
+the host: ``cholesky_ex`` skips the error check that
 ``torch.linalg.cholesky`` syncs for.
 
-Bound of the kernel on the H100: bytes (S in, S^-1 out); see
+Bound of the kernels on the H100: bytes (S in, S^-1 out); see
 csrc/sinv.cu for the count and the design.
 """
 
@@ -22,18 +36,19 @@ from __future__ import annotations
 
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import cuda_lib, spd_core
 
 N_ITERS = 12
 F32_POLISH = 2
 MAX_RESCUE = 128
 # The JAX package's routing (ops/sinv.py:212): its one-block TPU kernel
-# held S in 16 MB of VMEM up to M = 512.  Not a limit of the CUDA kernel,
-# which takes any M.
+# held S in 16 MB of VMEM up to M = 512.  Not a limit of the CUDA kernels,
+# which take any M.
 MAX_KERNEL_M = 512
-# csrc/sinv.cu's output tile edge: the kernel needs one float of scratch
-# per (TILE, TILE) tile for its per-block residual maxima
-TILE = 32
+# csrc/sinv.cu: the identity columns a solve CTA takes, and the shared
+# memory its slab may use before it moves to the scratch in device memory
+SLAB = 8
+SOLVE_SMEM_MAX = 96 * 1024
 
 LAUNCHES = cuda_lib.LaunchCounter("sinv")
 
@@ -89,48 +104,53 @@ def ns_inverse_steps(S: torch.Tensor, lam_floor: float = 1.0,
     return X, k
 
 
-def sinv_cuda(S: torch.Tensor, lam_floor: float = 1.0,
-              n_iters: int = N_ITERS, f32_polish: int = F32_POLISH
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(S^-1, rescue steps) from one cooperative launch of the CUDA
-    kernel; S (M, M) float32 SPD with lambda_min(S) >= lam_floor.  The
-    rescue-step count (a (1,) int32 tensor, 0 when the probe passed) is
-    returned for checking."""
+def sinv_cuda(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(S^-1, info) from the CUDA kernels; S (M, M) float32 SPD.  info, a
+    (1,) int32 tensor, counts the non-positive pivots of the factorization
+    (0 for an SPD S); it is returned for checking and nothing reads it on
+    the path."""
     S = S.contiguous()
     cuda_lib.check_cuda_inputs("sinv", {"S": S})
     M = S.shape[0]
     if S.shape != (M, M) or M < 1:
         raise ValueError(f"sinv: S must be square, got {tuple(S.shape)}")
-    if f32_polish < 1 or n_iters < f32_polish:
-        raise ValueError("sinv: needs 1 <= f32_polish <= n_iters")
-    tiles = -(-M // TILE)
     dev = S.device
     out = torch.empty_like(S)
-    scratch = torch.empty((2 * M * M + tiles * tiles,), dtype=torch.float32,
-                          device=dev)
-    info = torch.empty((1,), dtype=torch.int32, device=dev)
-    base = scratch.data_ptr()
+    # L, the diagonal blocks' inverses, W = L^-1, X, R, then the solve's
+    # slabs when they do not fit its shared memory
+    sizes = [spd_core.tri(M), -(-M // spd_core.NB) * spd_core.NB ** 2,
+             M * M, M * M, M * M,
+             -(-M // SLAB) * M * SLAB if M * SLAB * 4 > SOLVE_SMEM_MAX
+             else 0]
+    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    ptrs, base = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(base)
+        base += 4 * n
+    ints = torch.empty((2 * M + 2,), dtype=torch.int32, device=dev)
     cuda_lib.library().call(
-        "ekf_sinv", S.data_ptr(), out.data_ptr(), base, base + 4 * M * M,
-        base + 8 * M * M, info.data_ptr(), M, float(lam_floor), n_iters,
-        f32_polish, cuda_lib.stream_of(S))
+        "ekf_sinv", S.data_ptr(), out.data_ptr(), *ptrs, ints.data_ptr(),
+        ints.data_ptr() + 4 * M, ints.data_ptr() + 8 * M, M,
+        cuda_lib.stream_of(S))
     LAUNCHES.hit()
-    return out, info
+    return out, ints[2 * M + 1:]
 
 
 def newton_schulz_inverse(S: torch.Tensor, lam_floor: float = 1.0
                           ) -> torch.Tensor:
-    """The Newton-Schulz S^-1: plain version on the CPU, the kernel on
-    CUDA."""
+    """S^-1 by the S-inverse kernels on CUDA, by their plain version
+    ``cholesky_inverse`` on the CPU.  ``lam_floor`` keeps the JAX
+    signature; the factorization needs no bound on lambda_min and does not
+    read it."""
     if S.device.type == "cpu":
-        return ns_inverse(S, lam_floor)
-    return sinv_cuda(S, lam_floor)[0]
+        return cholesky_inverse(S)
+    return sinv_cuda(S)[0]
 
 
 def spd_inverse(S: torch.Tensor, lam_floor: float = 1.0) -> torch.Tensor:
-    """S^-1 for SPD S with lambda_min >= lam_floor: the Newton-Schulz
-    kernel for a CUDA float32 S up to MAX_KERNEL_M, Cholesky otherwise
-    (large maps, the CPU, float64)."""
+    """S^-1 for SPD S with lambda_min >= lam_floor: the S-inverse kernels
+    for a CUDA float32 S up to MAX_KERNEL_M, Cholesky otherwise (large
+    maps, the CPU, float64)."""
     if (S.device.type == "cuda" and S.dtype == torch.float32
             and S.shape[0] <= MAX_KERNEL_M):
         return newton_schulz_inverse(S, lam_floor)

@@ -3,40 +3,51 @@
 Replaces the TPU kernel ``_update_kernel`` / ``joint_update_pallas``
 (openekfmonoslam_tpu/ops/update_kernel.py:73,158) and the Newton-Schulz
 inverse it embeds (ns_inverse_into, ops/sinv.py:68): mask the shared
-H P / H P H^T rows, add the noise diagonal, invert S, W = S^-1 (H P),
-x += W^T res, P' = 1/2 (P + P^T) - 1/2 (D + D^T) with D = (H P)^T W (the
-plain chain's downdate and symmetrize; P' comes out exactly symmetric),
-then the quaternion renormalization and its Jacobian through P rows and
-columns 3:7, all gated by applied = any(use) on the device.
+H P / H P H^T rows, add the noise diagonal, x += K res, the P downdate and
+its symmetrization, then the quaternion renormalization and its Jacobian
+through P rows and columns 3:7, all gated by applied = any(use) on the
+device.
 
-Bound on the H100: fp32 operations, 2 Mu^3 + 2 Mu^2 N + 2 Mu N^2 + 2 Mu N
-for Mu used rows of 2F (the downdate counted once), ~0.22 GFLOP at N = 640
-with all 2F = 192 rows used (~3.3 us at 67 TFLOP/s); the covariance
-traffic is ~3.9 MB (~1.2 us).  Design (csrc/update.cu): a one-block
-Gauss-Jordan inverse of S in shared memory (M^2 multiply-adds per used
-row, independent of cond(S); the steps of unused rows are identities and
-skipped), two tiled fp32 GEMM kernels with 4x4 register tiles for W and
-the symmetric downdate (D and D^T as two products, twice the downdate's
-need, so that P' is exactly symmetric), and a one-block finalize -- four
-launches on one stream, no
-host synchronisation.  All products are true fp32 (no TF32, no bf16
-split).  No N or 2F cap: S falls back from shared to device memory when
-it does not fit.  Outputs are new tensors; P is never written.
+Design (csrc/update.cu over csrc/spd_core.cuh): the kernels work on the
+Mu used rows only, compacted on the device, and in factored form.  One CTA
+factors S_u = L L^T by a blocked Cholesky in shared memory; column slabs
+across CTAs form V = L^-1 (H P)_u and y = L^-1 res_u, x' = x + V^T y, and
+the renormalized q with its Jacobian Jq; a SYRK over the upper-triangle
+tiles writes P' = 1/2 (P + P^T) - V^T V into both triangles from the same
+numbers (exactly symmetric) and pushes Jq through rows and columns 3:7 in
+its epilogue.  Three launches on one stream, no host synchronisation; S^-1
+is never formed.  All products are true fp32 (no TF32, no bf16 split).  No
+N or 2F cap: L and the solve's slabs fall back from shared to device
+memory when they do not fit.  Outputs are new tensors; P is never written.
+
+Bound on the H100: fp32 operations, Mu^3 / 6 + Mu^2 N / 2 + Mu N^2 / 2 +
+Mu N multiply-adds for Mu used rows of 2F (about 0.07 GFLOP at N = 640
+and Mu = 132, 1.0 us at 67 TFLOP/s); the sequential panels of the
+factorization and the block rows of the solve, not the bound, set its
+time.
 
 ``joint_update`` is the wrapper: a CPU tensor runs ``update_plain`` (the
 filter/update.py kalman_update + finalize_update chain), a CUDA tensor
-launches the kernels or raises.  ``filter/update.update`` takes this
-kernel only where ``update_kernel_applicable`` holds, as the JAX package
-does; elsewhere it runs the chain with the S-inverse kernel (ops/sinv.py).
+launches the kernels or raises.  ``tests/test_torch_spd_core.py`` follows
+the kernels' factored steps in PyTorch.  ``filter/update.update`` takes
+this kernel only where ``update_kernel_applicable`` holds, as the JAX
+package does; elsewhere it runs the chain with the S-inverse kernel
+(ops/sinv.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import cuda_lib, spd_core
 
 LAUNCHES = cuda_lib.LaunchCounter("update")
+
+# csrc/update.cu: the columns of H P a solve CTA takes (plus the residual
+# column), and the shared memory its slab may use before it moves to the
+# scratch in device memory
+SLAB = 16
+SOLVE_SMEM_MAX = 96 * 1024
 
 # The JAX package's routing (ops/update_kernel.py:205-215): its one-launch
 # TPU kernel held P, D and D^T in 16 MB of VMEM up to N = 768, 2F = 512,
@@ -76,10 +87,11 @@ def update_plain(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
 def joint_update_cuda(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
                       Sfull: torch.Tensor, uv: torch.Tensor, z: torch.Tensor,
                       use: torch.Tensor, pixel_error: float
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(x', P', S^-1) from the CUDA kernels; P (N, N), x (N,), HP (2F, N),
-    Sfull (2F, 2F), uv/z (F, 2), use (F,) bool.  S^-1 is the masked
-    S's inverse the gain used (returned for checking)."""
+                      ) -> tuple[torch.Tensor, torch.Tensor, spd_core.Factor]:
+    """(x', P', factor) from the CUDA kernels; P (N, N), x (N,), HP (2F, N),
+    Sfull (2F, 2F), uv/z (F, 2), use (F,) bool.  The factor of the masked
+    S that the update used is returned for checking
+    (``spd_core.dense_factor``)."""
     P, x, HP, Sfull, uv, z, use = (t.contiguous() for t in (P, x, HP, Sfull,
                                                            uv, z, use))
     cuda_lib.check_cuda_inputs("update", {
@@ -90,20 +102,33 @@ def joint_update_cuda(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     M = 2 * F
     if (P.shape != (N, N) or x.shape != (N,) or HP.shape != (M, N)
             or Sfull.shape != (M, M) or uv.shape != (F, 2)
-            or z.shape != (F, 2) or F < 1):
+            or z.shape != (F, 2) or F < 1 or N < 7):
         raise ValueError("update: bad shapes")
     dev = P.device
     P_out = torch.empty_like(P)
     x_out = torch.empty_like(x)
-    Sinv = torch.empty((M, M), dtype=torch.float32, device=dev)
-    W = torch.empty((M, N), dtype=torch.float32, device=dev)
+    blocks = -(-M // spd_core.NB)
+    slabs = -(-N // SLAB)
+    # L, the diagonal blocks' inverses, V, Jq, then the solve's slabs when
+    # they do not fit its shared memory
+    sizes = [spd_core.tri(M), blocks * spd_core.NB ** 2, M * N, 16,
+             slabs * M * (SLAB + 1) if M * (SLAB + 1) * 4 > SOLVE_SMEM_MAX
+             else 0]
+    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    ptrs, base = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(base)
+        base += 4 * n
+    ints = torch.empty((M + 2,), dtype=torch.int32, device=dev)
     cuda_lib.library().call(
         "ekf_update", P.data_ptr(), x.data_ptr(), HP.data_ptr(),
         Sfull.data_ptr(), uv.data_ptr(), z.data_ptr(), use.data_ptr(),
-        P_out.data_ptr(), x_out.data_ptr(), Sinv.data_ptr(), W.data_ptr(),
-        N, F, float(pixel_error), cuda_lib.stream_of(P))
+        P_out.data_ptr(), x_out.data_ptr(), *ptrs, ints.data_ptr(),
+        ints.data_ptr() + 4 * M, N, F, float(pixel_error),
+        cuda_lib.stream_of(P))
     LAUNCHES.hit()
-    return x_out, P_out, Sinv
+    factor = spd_core.Factor(scratch[:sizes[0]], ints[:M], ints[M:])
+    return x_out, P_out, factor
 
 
 def joint_update(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,

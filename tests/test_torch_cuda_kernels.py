@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
 the main path does not reach: ragged tiles, one slot, several blocks, an S
-too large for shared memory (the update's device-memory inverse), odd
+too large for shared memory (the device-memory factorization), odd
 frame sizes and other STAR and BRIEF settings, the S-inverse from M = 1 to
-640 and cond 1e2 to 1e6, the measure kernel's quirks variant at F = 1 to
+3100 and cond 1e2 to 1e6, the measure kernel's quirks variant at F = 1 to
 168, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
 at cond 1e2 to 1e4.  The filter kernels are held against float64;
 STAR and BRIEF must equal their float32 plain versions bit for bit.
@@ -22,8 +22,8 @@ from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            init_kernel, measure_kernel,
-                                           predict_kernel, sinv, star_kernel,
-                                           update_kernel)
+                                           predict_kernel, sinv, spd_core,
+                                           star_kernel, update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 pytestmark = pytest.mark.cuda
@@ -178,9 +178,13 @@ def test_solve_spd_routes(dev):
 
 
 @pytest.mark.parametrize("F,use_frac", [(1, 1.0), (8, 0.5), (96, 0.6),
-                                        (130, 0.7), (130, 0.0)])
+                                        (96, 1.0), (130, 0.7), (130, 0.0),
+                                        (260, 1.0), (723, 1.0)])
 def test_update_kernel(dev, F, use_frac):
-    """F = 130 gives 2F = 260, whose S (270 KB) exceeds shared memory."""
+    """Against the float64 chain, with the factor the update used: L L^T
+    equals the masked S.  2F = 520 rows all used factor in device memory
+    (their packed triangle exceeds shared memory); at 2F = 1446 the solve's
+    slabs also move to device memory."""
     rng = np.random.default_rng(F)
     N = 13 + 6 * F
     P = _spd(rng, N)
@@ -193,7 +197,7 @@ def test_update_kernel(dev, F, use_frac):
     args = [_f32(a, dev) for a in (P, x, HP, HP @ H.T, uv,
                                    uv + rng.standard_normal((F, 2)))]
     use = torch.tensor(rng.uniform(size=F) < use_frac, device=dev)
-    x_k, P_k, Sinv_k = update_kernel.joint_update_cuda(*args, use, 1.0)
+    x_k, P_k, factor = update_kernel.joint_update_cuda(*args, use, 1.0)
     if use_frac == 0.0:
         assert torch.equal(x_k, args[1]) and torch.equal(P_k, args[0])
         return
@@ -206,8 +210,10 @@ def test_update_kernel(dev, F, use_frac):
     # 1.0 on unused ones
     S = d[3] * (u2[:, None] * u2[None, :]) + torch.eye(
         2 * F, dtype=torch.float64, device=dev)
-    inv = sinv.spd_inverse(S)
-    assert _err(Sinv_k, inv) <= 1e-4 * float(inv.abs().max())
+    L = spd_core.dense_factor(factor, 2 * F)
+    assert int(factor.meta[0]) == int(u2.sum())
+    assert int(factor.meta[1]) == 0
+    assert _err(L @ L.T, S) <= 1e-4 * float(S.abs().max())
 
 
 @pytest.mark.parametrize("C", [1, 200])
@@ -251,23 +257,47 @@ def _sinv_rel_err(x, s):
 @pytest.mark.parametrize("cond", [1e2, 1e4, 1e6])
 def test_sinv_kernel(dev, M, cond):
     """Relative error against the float64 inverse within the TPU kernel
-    test's bound, 3e-5 max(cond / 1e2, 1); the rescue branch runs at
-    cond >= 1e4 and not at 1e2 (for M >= 192)."""
+    test's bound, 3e-5 max(cond / 1e2, 1), and no non-positive pivot.  At
+    M = 640 the packed triangle exceeds shared memory and the
+    factorization runs in device memory."""
     S = _f32(spd_cond(M, cond), dev)
-    X, steps = sinv.sinv_cuda(S, 1.0)
+    X, info = sinv.sinv_cuda(S)
     torch.cuda.synchronize()
     assert X.shape == (M, M) and bool(torch.isfinite(X).all())
     assert _sinv_rel_err(X, S) <= 3e-5 * max(cond / 1e2, 1.0)
-    if M >= 192:
-        assert (int(steps) > 0) == (cond >= 1e4)
+    assert int(info) == 0
 
 
 @pytest.mark.parametrize("M", [192, 336])
 def test_sinv_kernel_masked_identity_rows(dev, M):
     S = _f32(masked_s(M), dev)
-    X, steps = sinv.sinv_cuda(S, 1.0)
+    X, info = sinv.sinv_cuda(S)
     assert _sinv_rel_err(X, S) <= 1e-4
-    assert int(steps) > 0
+    assert int(info) == 0
+    # the identity rows and columns of S are those of S^-1, exactly
+    eye = torch.eye(M, device=dev)
+    off = S != eye
+    ident = ~(off.any(dim=1) | off.any(dim=0))
+    assert bool(ident.any())
+    assert torch.equal(X[ident], eye[ident])
+    assert torch.equal(X[:, ident], eye[:, ident])
+
+
+def test_sinv_kernel_beyond_shared_memory(dev):
+    """M = 3100: the solve's slabs of 8 identity columns no longer fit its
+    shared memory and move to device memory."""
+    S = _f32(spd_cond(3100, 1e2), dev)
+    X, info = sinv.sinv_cuda(S)
+    assert _sinv_rel_err(X, S) <= 3e-5 and int(info) == 0
+
+
+def test_sinv_kernel_counts_a_non_positive_pivot(dev):
+    """An S that is not positive definite: the kernels still launch and
+    run, and info counts the failed pivot."""
+    S = _f32(spd_cond(64, 1e2), dev)
+    S[10, 10] = -5.0
+    _, info = sinv.sinv_cuda(S)
+    assert int(info) >= 1
 
 
 def test_spd_inverse_routes_large_s_to_cholesky(dev):
@@ -314,7 +344,7 @@ def test_wrappers_refuse_float64_cuda_tensors(dev):
     with pytest.raises(ValueError, match="float32"):
         predict_kernel.predict(P, x, 1.0, 1e-6, 1e-6)
     with pytest.raises(ValueError, match="float32"):
-        sinv.sinv_cuda(P, 1.0)
+        sinv.sinv_cuda(P)
 
 
 def _gray(rng, h, w, dev):

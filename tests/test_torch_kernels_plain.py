@@ -37,8 +37,8 @@ from openekfmonoslam_tpu_torch.core.camera import Camera as TCamera
 from openekfmonoslam_tpu_torch.engine import step as tstep
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
                                            init_kernel, measure_kernel,
-                                           predict_kernel, sinv, star_kernel,
-                                           update_kernel)
+                                           predict_kernel, sinv, spd_core,
+                                           star_kernel, update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief as tbrief
 from openekfmonoslam_tpu_torch.vision import star as tstar
 
@@ -344,9 +344,14 @@ def test_cam_params_mirror_the_cuda_struct():
                        re.sub(r"\b(int|float)\b", "", body))
     assert names == [n for n, _ in cuda_lib.StarParams._fields_]
     assert f"#define STAR_MAX_SIZES {cuda_lib.STAR_MAX_SIZES}" in star_src
-    sinv_src = (Path(cuda_lib.CSRC) / "sinv.cu").read_text()
-    assert f"constexpr int TS = {sinv.TILE};" in sinv_src
-    assert f"constexpr int MAX_RESCUE = {sinv.MAX_RESCUE};" in sinv_src
+    # the constants that size the wrappers' scratch
+    core_src = (Path(cuda_lib.CSRC) / "spd_core.cuh").read_text()
+    assert re.search(rf"constexpr int NB = {spd_core.NB};", core_src)
+    for mod, name in ((sinv, "sinv.cu"), (update_kernel, "update.cu")):
+        src = (Path(cuda_lib.CSRC) / name).read_text()
+        assert re.search(rf"constexpr int SLAB = {mod.SLAB};", src)
+        assert (f"constexpr int SOLVE_SMEM_MAX = "
+                f"{mod.SOLVE_SMEM_MAX // 1024} * 1024;") in src
     # one launcher per kernel module, every one declared for ctypes
     exported = set()
     for cu in Path(cuda_lib.CSRC).glob("*.cu"):

@@ -1,12 +1,13 @@
 """The port's SPD inverses (ops/sinv.py) and the update's routing
 (filter/update.py) against the JAX package.
 
-The Newton-Schulz plain version ``ns_inverse`` is held against the float64
-inverse on the matrices of tests/test_sinv.py (cond 1e2-1e4, and the
-update's masked S with identity rows) in float32, to the 1e-4 relative
-bound of the TPU kernel's tests; ``spd_inverse`` on the CPU is Cholesky,
-held against the JAX ``spd_inverse`` in float64.  The routing constants
-are the JAX package's.  The CUDA kernel itself is checked on the card
+The port of the JAX Newton-Schulz math, ``ns_inverse``, is held against
+the float64 inverse on the matrices of tests/test_sinv.py (cond 1e2-1e4,
+and the update's masked S with identity rows) in float32, to the 1e-4
+relative bound of the TPU kernel's tests; ``spd_inverse`` on the CPU is
+Cholesky (the S-inverse kernels' plain version), held against the JAX
+``spd_inverse`` in float64.  The routing constants are the JAX package's.
+The CUDA kernels themselves are checked on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
@@ -91,9 +92,10 @@ def test_cpu_tensors_take_the_chain_and_cholesky():
 def test_wrapper_runs_the_plain_version_on_a_cpu_tensor():
     s = torch.tensor(spd(48, 1e3))
     sinv.LAUNCHES.reset()
+    # the S-inverse kernels' plain version is the Cholesky inverse
     torch.testing.assert_close(sinv.newton_schulz_inverse(s, 1.0),
-                               sinv.ns_inverse(s, 1.0), rtol=0, atol=0)
+                               sinv.cholesky_inverse(s), rtol=0, atol=0)
     assert sinv.LAUNCHES.count == 0
     with pytest.raises(ValueError, match="not a CUDA tensor"):
-        sinv.sinv_cuda(s, 1.0)
+        sinv.sinv_cuda(s)
     assert sinv.LAUNCHES.count == 0

@@ -76,9 +76,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
               float64 (1e-4 m, masks 95%).
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
-(bit for bit) on a textured 640x480 frame and on an odd 483x645 one, the
-S-inverse kernel at M = 192, 336, 512 and 640 (cond 1e2, 1e3, 1e4, and
-the update's masked S at M = 336) against float64, the fused update
+(bit for bit) on a textured 640x480 frame and on an odd 483x645 one:
+STAR by both routes (the staged one the s3 settings take, and the direct
+one), BRIEF by both variants (s256, the shipped pattern's, and generic)
+and a 512-bit pattern by the generic variant; then the S-inverse kernel
+at M = 192, 336, 512 and 640 (cond 1e2, 1e3, 1e4, and the update's
+masked S at M = 336) against float64, the fused update
 against the chain with the S-inverse kernel at N = 1024, 2F = 336, the
 measure kernel's quirks variant against the float64 plain quirks chain,
 and the blocked Cholesky solve at (M, K) from (1, 1) to (512, 640) against
@@ -86,17 +89,19 @@ the float64 solve (timed at (192, 640) and (336, 1024), beside
 torch.linalg.solve).
 
 The line before the last is one JSON object with a row per kernel (its
-launches from its path: phase 5 for the six kernels of the s3 live path,
-phase 6 for the S-inverse, phase 7's engine for the measure kernel's
-quirks variant; the Cholesky solve has no path; the S-inverse's times and
-bound are on a kept frame's S of phase 6).  The last line
-is {"ok": true, "device": {...}}.  Details go to
+launches from its path: phase 5 for the six kernels of the s3 live path
+and for STAR's direct route and BRIEF's generic variant, which no shipped
+setting takes, phase 6 for the S-inverse, phase 7's engine for the
+measure kernel's quirks variant; the Cholesky solve has no path; the
+S-inverse's times and bound are on a kept frame's S of phase 6).  The
+last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -162,13 +167,23 @@ KERNELS = {
     "init": dict(counter=init_kernel.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/init.cu",
                  replaces="openekfmonoslam_tpu/ops/init_kernel.py:48"),
-    # _resp_kernel (:45) and _score_kernel (:69)
+    # _resp_kernel (:45) and _score_kernel (:69) in one launch: the route
+    # that stages the integral-image window (max size up to 44) ...
     "star": dict(counter=star_kernel.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/star.cu",
                  replaces="openekfmonoslam_tpu/ops/star_kernel.py:45"),
+    # ... and the one that reads it through the read-only path
+    "star_direct": dict(counter=star_kernel.DIRECT_LAUNCHES,
+                        source="openekfmonoslam_tpu_torch/csrc/star.cu",
+                        replaces="openekfmonoslam_tpu/ops/star_kernel.py:45"),
+    # the shipped pattern's variant, and the one for any other pattern
     "brief": dict(counter=brief_kernel.LAUNCHES,
                   source="openekfmonoslam_tpu_torch/csrc/brief.cu",
                   replaces="openekfmonoslam_tpu/ops/brief_kernel.py:43"),
+    "brief_generic": dict(
+        counter=brief_kernel.GENERIC_LAUNCHES,
+        source="openekfmonoslam_tpu_torch/csrc/brief.cu",
+        replaces="openekfmonoslam_tpu/ops/brief_kernel.py:43"),
     "sinv": dict(counter=sinv.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/sinv.cu",
                  replaces="openekfmonoslam_tpu/ops/sinv.py:169"),
@@ -302,7 +317,11 @@ def device_ms(averages, frames: int) -> float:
 
 
 # device kernels of the hand-written STAR and BRIEF functions, by name
-LIVE_KERNEL_NAMES = ("star_resp", "star_score", "star_nms", "brief_planes")
+LIVE_KERNEL_NAMES = ("star_tile_staged", "star_tile_direct",
+                     "brief_planes_s256", "brief_planes_generic")
+# the PyTorch chains beside them, by the range phase 5 opens around each
+FRONTEND_CHAINS = {"frontend.smooth": (brief, "smooth"),
+                   "frontend.integral": (star, "_integral")}
 # ... of the S-inverse (csrc/sinv.cu) and of the fused update (update.cu)
 SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
                      "sinv_product<0>", "sinv_product<1>", "sinv_product<2>")
@@ -331,6 +350,46 @@ def kernel_device_us(averages, frames: int,
                     or "::" + name + "(" in e.key):
                 out[name] = {"us_per_frame": e.device_time_total / frames,
                              "calls_per_frame": e.count / frames}
+    return out
+
+
+@contextlib.contextmanager
+def chain_ranges(chains=FRONTEND_CHAINS):
+    """Open a profiler range, named by each key of ``chains``, around every
+    call of its (module, function) while the block runs."""
+    saved = []
+    for name, (module, attr) in chains.items():
+        fn = getattr(module, attr)
+
+        def ranged(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+
+        saved.append((module, attr, fn))
+        setattr(module, attr, ranged)
+    try:
+        yield
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def chain_device(events, frames: int, names=tuple(FRONTEND_CHAINS)) -> dict:
+    """{range: device us, device launches (kernels, copies, memsets),
+    calls and host us, each a frame} of the ranges ``chain_ranges``
+    opened, from the profiler's events."""
+    def launches(e):
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    out = {n: dict(device_us=0.0, launches=0.0, calls=0.0, host_us=0.0)
+           for n in names}
+    for e in events:
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            row = out[e.name]
+            row["device_us"] += e.device_time_total / frames
+            row["launches"] += launches(e) / frames
+            row["calls"] += 1 / frames
+            row["host_us"] += e.cpu_time_total / frames
     return out
 
 
@@ -543,27 +602,49 @@ def star_ops(settings) -> int:
     return 11 * n_sizes + 4 + 3 + 30 + 8 + 2 + 4 * settings.nms_radius + 3
 
 
-def check_star_brief(failures, tag: str, gray, frontend) -> dict:
+def wide_pattern(frontend, dev):
+    """A 512-bit pattern (BytesLength 64) of the s3 patch: the generic
+    BRIEF variant's row."""
+    desc = frontend.config.descriptor
+    return brief_kernel.BriefPattern.make(*brief.make_shared_pattern(
+        512, desc.patch_size, desc.pattern_seed), dev)
+
+
+def check_star_brief(failures, tag: str, gray, frontend,
+                     both: bool = False) -> dict:
     """STAR and BRIEF against their float32 plain versions on the card, on
-    the same integral image and the same smoothed image: bit for bit."""
+    the same integral image and the same smoothed image: bit for bit.
+    With ``both``, STAR by both routes and BRIEF by both variants, and a
+    512-bit pattern by the generic one."""
     h, w = gray.shape
     s = frontend.star
     ii = star._integral(gray, star.integral_pad(s.max_size))
-    raw, nms = star_kernel.star_cuda(ii, h, w, s)
     raw_p, nms_p = star_kernel.star_plain(ii, h, w, s)
-    e_star = max(max_abs(raw, raw_p), max_abs(nms, nms_p))
     peaks = int((nms_p > 0).sum())
-    check(failures, torch.equal(raw, raw_p) and torch.equal(nms, nms_p),
-          f"star[{tag} {h}x{w}] raw and nms identical to the plain version "
-          f"({peaks} peaks, max |diff| {e_star:.3e})")
+    e_star = {}
+    for route in (star_kernel.star_plan(s)[0], "direct")[:2 if both else 1]:
+        raw, nms = star_kernel.star_cuda(ii, h, w, s, route)
+        e_star[route] = max(max_abs(raw, raw_p), max_abs(nms, nms_p))
+        check(failures, torch.equal(raw, raw_p) and torch.equal(nms, nms_p),
+              f"star[{tag} {h}x{w}, {route}] raw and nms identical to the "
+              f"plain version ({peaks} peaks, max |diff| "
+              f"{e_star[route]:.3e})")
     smoothed = brief.smooth(gray, frontend.config.descriptor.blur_sigma)
-    planes = brief_kernel.dense_planes_cuda(smoothed, frontend.pattern)
-    planes_p = brief_kernel.dense_planes_plain(smoothed, frontend.pattern)
-    bits = sum(int(brief.popcount32(a ^ b).sum())
-               for a, b in zip(planes, planes_p))
-    check(failures, bits == 0 and len(planes) == len(planes_p),
-          f"brief[{tag} {h}x{w}] {len(planes)} planes of "
-          f"{tuple(planes[0].shape)} bit-identical ({bits} bits differ)")
+    bits = {}
+    cases = [(frontend.pattern.variant, frontend.pattern)]
+    if both:
+        cases += [("generic", frontend.pattern),
+                  ("generic", wide_pattern(frontend, gray.device))]
+    for variant, pattern in cases:
+        planes = brief_kernel.dense_planes_cuda(smoothed, pattern, variant)
+        planes_p = brief_kernel.dense_planes_plain(smoothed, pattern)
+        n = sum(int(brief.popcount32(a ^ b).sum())
+                for a, b in zip(planes, planes_p))
+        key = f"{variant}_{pattern.pairs.shape[0]}"
+        bits[key] = n
+        check(failures, n == 0 and len(planes) == len(planes_p),
+              f"brief[{tag} {h}x{w}, {variant}] {len(planes)} planes of "
+              f"{tuple(planes[0].shape)} bit-identical ({n} bits differ)")
     return dict(ii=ii, smoothed=smoothed, star_err=e_star,
                 brief_bits=bits, peaks=peaks)
 
@@ -702,28 +783,43 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
     # ---- star, brief: the main path's 640x480 frame, then an odd shape
     h, w = LIVE_HW
     gray = torch.tensor(blob_texture(rng, h, w), device=dev)
-    main = check_star_brief(failures, "main", gray, frontend)
+    main = check_star_brief(failures, "main", gray, frontend, both=True)
     odd = check_star_brief(failures, "odd", torch.tensor(
-        blob_texture(rng, 483, 645), device=dev), frontend)
+        blob_texture(rng, 483, 645), device=dev), frontend, both=True)
     check(failures, main["peaks"] >= 1000,
           f"the textured frame has {main['peaks']} STAR peaks (>= 1000)")
     s_set, pattern = frontend.star, frontend.pattern
+    wide = wide_pattern(frontend, dev)
     ii, smoothed = main["ii"], main["smoothed"]
-    half, n_bits = pattern.half, pattern.pairs.shape[0]
-    ih, iw = h - 2 * half, w - 2 * half
-    rows["star"] = dict(
-        max_abs_err=max(main["star_err"], odd["star_err"]),
-        bytes=4 * (ii.numel() + 2 * h * w), flops=star_ops(s_set) * h * w,
-        kernel=lambda: star_kernel.star_from_integral(ii, h, w, s_set),
-        plain=lambda: star_kernel.star_plain(ii, h, w, s_set))
+    planned = star_kernel.star_plan(s_set)[0]
+    check(failures, planned == "staged" and pattern.variant == "s256",
+          f"the s3 settings take the staged STAR route ({planned}) and the "
+          f"s256 BRIEF variant ({pattern.variant})")
+    for name, route in (("star", "staged"), ("star_direct", "direct")):
+        rows[name] = dict(
+            max_abs_err=max(main["star_err"][route], odd["star_err"][route]),
+            bytes=4 * (ii.numel() + 2 * h * w),
+            flops=star_ops(s_set) * h * w,
+            kernel=lambda route=route: star_kernel.star_cuda(ii, h, w, s_set,
+                                                             route),
+            plain=lambda: star_kernel.star_plain(ii, h, w, s_set))
     # max_abs_err: differing bits (0 = bit-identical); the operations are
     # one compare and one bit insert per bit
-    rows["brief"] = dict(
-        max_abs_err=float(main["brief_bits"] + odd["brief_bits"]),
-        bytes=4 * (h * w + (n_bits // 32) * ih * iw),
-        flops=2 * n_bits * ih * iw,
-        kernel=lambda: brief_kernel.dense_planes(smoothed, pattern),
-        plain=lambda: brief_kernel.dense_planes_plain(smoothed, pattern))
+    for name, pat, variant in (("brief", pattern, "s256"),
+                               ("brief_generic", wide, "generic"),
+                               ("brief_generic_256", pattern, "generic")):
+        n_bits, half = pat.pairs.shape[0], pat.half
+        ih, iw = h - 2 * half, w - 2 * half
+        key = f"{variant}_{n_bits}"
+        rows[name] = dict(
+            max_abs_err=float(main["brief_bits"][key]
+                              + odd["brief_bits"][key]),
+            n_bits=n_bits, bytes=4 * (h * w + (n_bits // 32) * ih * iw),
+            flops=2 * n_bits * ih * iw,
+            kernel=lambda pat=pat, variant=variant:
+                brief_kernel.dense_planes_cuda(smoothed, pat, variant),
+            plain=lambda pat=pat: brief_kernel.dense_planes_plain(smoothed,
+                                                                  pat))
 
     # ---- sinv: the standalone S-inverse at M = 2F of the large map and
     # around it, against float64
@@ -1283,6 +1379,9 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     check(failures, launches["star"] == T and launches["brief"] == T,
           f"star and brief launched once a frame plus once for init_step "
           f"({T})")
+    check(failures, launches["star_direct"] == 0
+          and launches["brief_generic"] == 0,
+          "no launch of STAR's direct route or BRIEF's generic variant")
     check(failures, launches["predict"] == S, f"predict launches {S}")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
     check(failures, launches["measure_quirks"] == 0,
@@ -1316,9 +1415,10 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     check(failures, syncs / S <= LIVE_SYNCS_PER_FRAME,
           f"host syncs per frame {syncs / S:.3f} <= {LIVE_SYNCS_PER_FRAME}")
 
-    # per-phase host and device ms under the profiler
+    # per-phase host and device ms under the profiler, with a range around
+    # each of the PyTorch chains beside the STAR and BRIEF kernels
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, chain_ranges():
         scan_runner.scan_frames(runtime, st0, gpu_frames[1:])
         torch.cuda.synchronize()
     averages = prof.key_averages()
@@ -1331,6 +1431,12 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                                  LIVE_KERNEL_NAMES + UPDATE_KERNEL_NAMES)
     dev_ms = device_ms(averages, S)
     print_device(dev_ms, vision_us)
+    chains = chain_device(prof.events(), S)
+    print("  PyTorch chains beside the front-end kernels, a frame: "
+          + "; ".join(f"{k} {v['device_us']:.2f} device us in "
+                      f"{v['launches']:.2f} device launches "
+                      f"({v['calls']:.2f} calls, host {v['host_us']:.1f} us)"
+                      for k, v in chains.items()), flush=True)
 
     # STAR and BRIEF on frame T/2's own image
     mid = check_star_brief(failures, f"frame {T // 2}", gpu_frames[T // 2],
@@ -1367,7 +1473,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                 syncs=syncs, syncs_per_frame=syncs / S,
                 sync_sites=dict(sites), fps_sync_debug=S / sync_s,
                 phase_ms=phase_ms, vision_kernels_us=vision_us,
-                device_ms=dev_ms,
+                frontend_chains=chains, device_ms=dev_ms,
                 healthy=healthy,
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -1971,7 +2077,11 @@ def main(argv: list) -> int:
              "measure_quirks": ("parity engine (phase 7)",
                                 parity["engine"]["launches"],
                                 T_PARITY_LIVE),
-             "cholsolve": ("none: no engine path calls solve_spd", None, 1)}
+             "cholsolve": ("none: no engine path calls solve_spd", None, 1),
+             "star_direct": ("none on the shipped settings: max size 45 "
+                             "and above", live["launches"], T_LIVE),
+             "brief_generic": ("none on the shipped pattern: any other "
+                               "BRIEF pattern", live["launches"], T_LIVE)}
     kernels = []
     for name, spec in KERNELS.items():
         row = rows[name]
@@ -1992,7 +2102,7 @@ def main(argv: list) -> int:
             "launches_parity_replay": parity["replay"]["launches"][name],
             "launches_parity_engine": parity["engine"]["launches"][name]})
     extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
-             "cholsolve_336x1024")
+             "cholsolve_336x1024", "brief_generic_256")
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
@@ -2004,7 +2114,7 @@ def main(argv: list) -> int:
                   frames=T, syncs_per_frame=path["syncs"] / T, replay=rep,
                   live={k: v for k, v in live.items()},
                   large_map=large, sinv_path_row=rows["sinv"],
-                  large_map_kernels={k: rows[k] for k in extra},
+                  other_rows={k: rows[k] for k in extra},
                   cholsolve_checks=rows["cholsolve"]["checks"],
                   parity=parity, seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)

@@ -76,8 +76,9 @@ _SIGNATURES = {
                     ctypes.POINTER(CamParams), _P],
     "ekf_init": [_P, _P, _P, _P, _P, _I, _F, ctypes.POINTER(CamParams), _P],
     "ekf_update": [_P] * 16 + [_I, _I, _F, _P],
-    "ekf_star": [_P, ctypes.POINTER(StarParams), _P, _P, _P, _P],
-    "ekf_brief": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "ekf_star": [_P, ctypes.POINTER(StarParams), _I, _P, _P, _P],
+    "ekf_brief": [_P, _I, _I, _P, _P],
+    "ekf_brief_generic": [_P, _I, _I, _I, _P, _I, _P, _P],
     "ekf_sinv": [_P] * 11 + [_I, _P],
     "ekf_cholsolve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }

@@ -1,11 +1,13 @@
-"""STAR scoring and non-max suppression as CUDA kernels (``csrc/star.cu``).
+"""STAR scoring and non-max suppression as one CUDA kernel
+(``csrc/star.cu``).
 
 Replaces the TPU kernels ``_resp_kernel`` and ``_score_kernel`` /
 ``star_scores_fused`` (openekfmonoslam_tpu/ops/star_kernel.py:45,69,126):
 from the integral image, the scale-max center-surround response, then the
 gradients, 5x5 structure tensor, line gate and threshold (the pre-NMS
-map) and the 5x5 non-max suppression (the NMS'd map).  The integral image
-before it stays PyTorch (``vision/star._integral``), as it stayed XLA.
+map) and the (2r+1)^2 non-max suppression (the NMS'd map).  The integral
+image before it stays PyTorch (``vision/star._integral``), as it stayed
+XLA.
 
 Unlike the TPU kernel, which computes on a 5 px extended grid and differs
 from the XLA chain near the border, this one follows the plain chain's
@@ -16,17 +18,20 @@ ignored by the NMS window.
 Bound on the H100: memory.  At 640x480 the function reads the 547x707
 float32 integral image once (1.5 MB) and writes two 480x640 maps (2.5 MB),
 about 1.2 us at 3.35 TB/s; its ~160 flop a pixel take 0.7 us at 67
-TFLOP/s.  Design: three launches, one thread a pixel.  ``star_resp`` reads
-its 64 integral values through L1/L2 (the whole image fits in L2);
-``star_score`` stages the gradients of its 32x8 tile with a halo of 2 in
-shared memory and sums the products from there; ``star_nms`` needs the
-finished pre-NMS map at its neighbours, hence the third launch.  The
-scale-max map is a scratch buffer.  Every rounding is spelled out
-(``__fmul_rn``, ``__fadd_rn``, ``__fmaf_rn`` where the plain chain fuses)
-so that the compiler contracts nothing.
+TFLOP/s.  Design: one launch.  A block owns a TILE_H x (FRAME_W - 2e)
+output tile, e = 3 + nms_radius (132 blocks of 1024 threads at 640x480),
+and computes every stage in shared memory on the tile and its halo of e,
+so nothing but the two maps goes back to device memory.  Stage A, the
+response, reads the integral image one of two ways, the *route*, picked
+by ``star_plan`` from the settings: ``staged`` copies the window its
+boxes reach into shared memory first (75 KB a block at the s3 max
+size 16; it fits up to max size 44), ``direct`` reads it through the
+read-only path.  Every rounding is spelled out (``__fmul_rn``,
+``__fadd_rn``, ``__fmaf_rn`` where the plain chain fuses) so that the
+compiler contracts nothing.
 
 ``star_from_integral`` is the wrapper: a CPU tensor runs ``star_plain``, a
-CUDA tensor launches the kernels or raises.
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,7 +44,15 @@ import torch
 from openekfmonoslam_tpu_torch.ops import cuda_lib
 from openekfmonoslam_tpu_torch.vision import fast, star
 
-LAUNCHES = cuda_lib.LaunchCounter("star")
+LAUNCHES = cuda_lib.LaunchCounter("star")                # staged route
+DIRECT_LAUNCHES = cuda_lib.LaunchCounter("star_direct")
+
+# mirrors of csrc/star.cu: a block's output rows, its frame's columns, the
+# shared memory a block may opt into on the H100, and the most sizes the
+# staged route is built for
+TILE_H, FRAME_W = 44, 64
+SMEM_MAX = 227 * 1024
+STAGED_SIZES = 10
 
 
 class StarSettings(NamedTuple):
@@ -75,8 +88,26 @@ def star_params(h: int, w: int, ii_w: int, s: StarSettings
     return p
 
 
-def star_cuda(ii: torch.Tensor, h: int, w: int, s: StarSettings):
-    """The same two maps from the three CUDA launches."""
+def star_plan(s: StarSettings) -> tuple[str, int]:
+    """(route, shared-memory bytes a block) of the kernel under ``s``:
+    "staged" where the integral-image window and the response map fit in
+    SMEM_MAX, else "direct".  The frame's four later maps reuse the
+    window's room.  ``ekf_star`` sizes the same way."""
+    e = 3 + s.nms_radius
+    plane = (TILE_H + 2 * e) * FRAME_W
+    pad = star.integral_pad(s.max_size)
+    window = (TILE_H + 2 * e + 2 * pad - 1) * (FRAME_W + 2 * pad - 1)
+    staged = 4 * (plane + max(window, 4 * plane))
+    if staged <= SMEM_MAX \
+            and len(star.star_sizes(s.max_size)) <= STAGED_SIZES:
+        return "staged", staged
+    return "direct", 4 * 5 * plane
+
+
+def star_cuda(ii: torch.Tensor, h: int, w: int, s: StarSettings,
+              route: str | None = None):
+    """The same two maps from one launch of the CUDA kernel, by
+    ``star_plan``'s route or by ``route`` ("direct" takes any settings)."""
     ii = ii.contiguous()
     cuda_lib.check_cuda_inputs("star", {"ii": ii})
     pad = star.integral_pad(s.max_size)
@@ -84,22 +115,27 @@ def star_cuda(ii: torch.Tensor, h: int, w: int, s: StarSettings):
         raise ValueError(f"star: integral image {tuple(ii.shape)} does not "
                          f"match a {h}x{w} frame with pad {pad}")
     if len(star.star_sizes(s.max_size)) > cuda_lib.STAR_MAX_SIZES \
-            or s.nms_radius < 0:
+            or not 0 <= s.nms_radius < FRAME_W // 2 - 3:
         raise ValueError("star: unsupported settings")
-    best = torch.empty((h, w), dtype=torch.float32, device=ii.device)
-    raw = torch.empty_like(best)
-    nms = torch.empty_like(best)
+    planned = star_plan(s)[0]
+    route = route or planned
+    if route not in ("staged", "direct") or (route, planned) == ("staged",
+                                                                 "direct"):
+        raise ValueError(f"star: route {route!r} under {s} (planned "
+                         f"{planned!r})")
+    raw = torch.empty((h, w), dtype=torch.float32, device=ii.device)
+    nms = torch.empty_like(raw)
     params = star_params(h, w, ii.shape[1], s)
     cuda_lib.library().call("ekf_star", ii.data_ptr(), ctypes.byref(params),
-                            best.data_ptr(), raw.data_ptr(), nms.data_ptr(),
-                            cuda_lib.stream_of(ii))
-    LAUNCHES.hit()
+                            int(route == "staged"), raw.data_ptr(),
+                            nms.data_ptr(), cuda_lib.stream_of(ii))
+    (LAUNCHES if route == "staged" else DIRECT_LAUNCHES).hit()
     return raw, nms
 
 
 def star_from_integral(ii: torch.Tensor, h: int, w: int, s: StarSettings):
     """(score_raw, score_nms) of an (h, w) frame from its integral image:
-    plain version on the CPU, the kernels on CUDA."""
+    plain version on the CPU, the kernel on CUDA."""
     if ii.device.type == "cpu":
         return star_plain(ii, h, w, s)
     return star_cuda(ii, h, w, s)

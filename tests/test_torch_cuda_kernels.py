@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
 the main path does not reach: ragged tiles, one slot, several blocks, an S
 too large for shared memory (the device-memory factorization), odd
-frame sizes and other STAR and BRIEF settings, the S-inverse from M = 1 to
+frame sizes and other STAR and BRIEF settings (both STAR routes, both
+BRIEF variants), the S-inverse from M = 1 to
 3100 and cond 1e2 to 1e6, the measure kernel's quirks variant at F = 1 to
 168, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
 at cond 1e2 to 1e4.  The filter kernels are held against float64;
@@ -360,25 +361,73 @@ def _gray(rng, h, w, dev):
     (480, 640, star_kernel.StarSettings(nms_radius=3)),
     (37, 50, star_kernel.StarSettings(max_size=4, response_threshold=5.0,
                                       nms_radius=1)),
-    (200, 131, star_kernel.StarSettings(max_size=45, line_threshold=6.0))])
-def test_star_kernel(dev, h, w, settings):
+    (200, 131, star_kernel.StarSettings(max_size=45, line_threshold=6.0)),
+    (5, 7, star_kernel.StarSettings(response_threshold=1.0)),
+    (150, 170, star_kernel.StarSettings(max_size=32, response_threshold=5.0)),
+    (150, 170, star_kernel.StarSettings(max_size=64, response_threshold=5.0,
+                                        nms_radius=1)),
+    (100, 150, star_kernel.StarSettings(response_threshold=5.0,
+                                        nms_radius=5))])
+@pytest.mark.parametrize("route", ["planned", "direct"])
+def test_star_kernel(dev, h, w, settings, route):
+    """One launch a call, by the planned route (staged up to max size 44,
+    direct from 45) and by the direct route forced, bit for bit; NMS radius
+    5 takes the row max's own pass."""
     gray = _gray(np.random.default_rng(h), h, w, dev)
     ii = star._integral(gray, star.integral_pad(settings.max_size))
-    raw, nms = star_kernel.star_cuda(ii, h, w, settings)
+    planned = star_kernel.star_plan(settings)[0]
+    assert planned == ("direct" if settings.max_size >= 45 else "staged")
+    route = planned if route == "planned" else route
+    star_kernel.LAUNCHES.reset()
+    star_kernel.DIRECT_LAUNCHES.reset()
+    raw, nms = star_kernel.star_cuda(ii, h, w, settings, route)
+    assert (star_kernel.LAUNCHES.count, star_kernel.DIRECT_LAUNCHES.count) \
+        == ((1, 0) if route == "staged" else (0, 1))
     raw_p, nms_p = star_kernel.star_plain(ii, h, w, settings)
     assert torch.equal(raw, raw_p) and torch.equal(nms, nms_p)
-    assert int((nms > 0).sum()) > 0
+    if h * w > 100:
+        assert int((nms > 0).sum()) > 0
 
 
-@pytest.mark.parametrize("h,w,patch", [(483, 645, 33), (480, 640, 33),
-                                       (50, 70, 15), (301, 97, 33)])
-def test_brief_kernel(dev, h, w, patch):
+def test_star_kernel_refuses_staged_where_it_does_not_fit(dev):
+    s = star_kernel.StarSettings(max_size=64)
+    ii = torch.zeros((20 + 2 * 129 + 1, 20 + 2 * 129 + 1), device=dev)
+    with pytest.raises(ValueError, match="route"):
+        star_kernel.star_cuda(ii, 20, 20, s, "staged")
+
+
+@pytest.mark.parametrize("h,w,n_bits,patch", [
+    (483, 645, 256, 33), (480, 640, 256, 33), (50, 70, 256, 15),
+    (301, 97, 256, 33), (483, 645, 128, 33), (480, 640, 512, 33),
+    (97, 130, 256, 49), (70, 66, 512, 15)])
+@pytest.mark.parametrize("variant", ["own", "generic"])
+def test_brief_kernel(dev, h, w, n_bits, patch, variant):
+    """Each pattern by its own variant (s256 for the shipped one) and by
+    the generic variant, bit for bit, one launch a call."""
     smoothed = brief.smooth(_gray(np.random.default_rng(w), h, w, dev))
     pattern = brief_kernel.BriefPattern.make(
-        *brief.make_shared_pattern(patch_size=patch), dev)
-    got = brief_kernel.dense_planes_cuda(smoothed, pattern)
+        *brief.make_shared_pattern(n_bits, patch), dev)
+    variant = pattern.variant if variant == "own" else variant
+    brief_kernel.LAUNCHES.reset()
+    brief_kernel.GENERIC_LAUNCHES.reset()
+    got = brief_kernel.dense_planes_cuda(smoothed, pattern, variant)
+    assert (brief_kernel.LAUNCHES.count,
+            brief_kernel.GENERIC_LAUNCHES.count) == (
+        (1, 0) if variant == "s256" else (0, 1))
     want = brief_kernel.dense_planes_plain(smoothed, pattern)
-    assert len(got) == len(want) == 8
+    assert len(got) == len(want) == n_bits // 32
     for a, b in zip(got, want):
         assert a.shape == (h - 2 * pattern.half, w - 2 * pattern.half)
         assert torch.equal(a, b)
+
+
+def test_brief_kernel_refuses_what_it_does_not_take(dev):
+    smoothed = torch.zeros((100, 100), device=dev)
+    other = brief_kernel.BriefPattern.make(
+        *brief.make_shared_pattern(256, 15), dev)
+    with pytest.raises(ValueError, match="s256"):
+        brief_kernel.dense_planes_cuda(smoothed, other, "s256")
+    wide = brief_kernel.BriefPattern.make(
+        *brief.make_shared_pattern(1024, 33), dev)
+    with pytest.raises(ValueError, match="512"):
+        brief_kernel.dense_planes_cuda(smoothed, wide)

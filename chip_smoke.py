@@ -20,7 +20,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
               kernel's device time (CUDA graph of 200 launches), its eager
               time, the plain version's time and its bound, and for the
               update and the S-inverse each launch's device time by kernel
-              name under torch.profiler;
+              name under torch.profiler; predict also at the large map's
+              N = 1024, and the per-launch floor (an empty hand-written
+              kernel in the same CUDA-graph harness);
   3. path     SlamRuntime(SlamConfig()) on the card at full s3 width: a
               closed-loop synthetic scene records an injection log (about
               160 points, a smooth camera path, 1 px noise, 5% outliers),
@@ -29,7 +31,8 @@ Phases, each of which passes or raises (the script then exits non-zero):
               to 0 just before and read just after, which gives frames/s;
               then two more replays: one counts host syncs per frame
               under PyTorch's sync debug mode, one takes each phase's
-              host and device ms from torch.profiler's ranges;
+              host and device ms from torch.profiler's ranges and the
+              device launches a call of predict_measurements;
   4. replay   the same log through the port on the CPU in float64 (the
               plain path), held against the card's float32 trajectory;
   5. live     the live entry points on 640x480 synthetic frames (a window
@@ -322,6 +325,10 @@ LIVE_KERNEL_NAMES = ("star_tile_staged", "star_tile_direct",
 # the PyTorch chains beside them, by the range phase 5 opens around each
 FRONTEND_CHAINS = {"frontend.smooth": (brief, "smooth"),
                    "frontend.integral": (star, "_integral")}
+# ... and the measurement prediction of phase 3's replay (the measure
+# kernel with H P and S beside it)
+MEASURE_CHAIN = {"filter.predict_measurements": (meas_mod,
+                                                 "predict_measurements")}
 # ... of the S-inverse (csrc/sinv.cu) and of the fused update (update.cu)
 SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
                      "sinv_product<0>", "sinv_product<1>", "sinv_product<2>")
@@ -552,6 +559,61 @@ def update_flops(Mu: int, N: int) -> float:
                 + Mu * Mu / 2 + Mu * N)
 
 
+def check_predict(failures, tag, Pp, xp, lin, ang) -> dict:
+    """The predict kernel against its float64 plain version: x and P
+    within their bounds, P'[13:, 13:] passed through bit-exact, P' exactly
+    symmetric; returns the kernel-table row."""
+    N = Pp.shape[0]
+    x_k, P_k = predict_kernel.predict(Pp, xp, 1.0, lin, ang)
+    x_t, P_t = predict_kernel.predict_plain(Pp.double(), xp.double(), 1.0,
+                                            lin, ang)
+    ex, eP = max_abs(x_k, x_t), max_abs(P_k, P_t)
+    check(failures, ex <= TOL["predict_x"],
+          f"{tag} x err {ex:.3e} <= {TOL['predict_x']}")
+    check(failures, eP <= TOL["predict_P"],
+          f"{tag} P err {eP:.3e} <= {TOL['predict_P']}")
+    check(failures, torch.equal(P_k[13:, 13:], Pp[13:, 13:]),
+          f"{tag} P[13:, 13:] passes through bit-exact")
+    check(failures, torch.equal(P_k, P_k.T), f"{tag} P' exactly symmetric")
+    macs = 2 * 13 * 13 * (N - 13) + 13 * 13 * 2 * (13 * 13 + 13)
+    return dict(
+        max_abs_err=max(ex, eP), N=N,
+        bytes=4 * (2 * N * N + 2 * N), flops=2 * macs,
+        kernel=lambda: predict_kernel.predict(Pp, xp, 1.0, lin, ang),
+        plain=lambda: predict_kernel.predict_plain(Pp, xp, 1.0, lin, ang))
+
+
+def check_measure(failures, tag, camera, cam7, feats, is_xyz, active,
+                  quirks: bool) -> tuple[float, tuple]:
+    """The measure kernel against its float64 plain version: visibility
+    equal, the visible slots' uv, Hc and Hf within 1e-6 relative, and the
+    masks exact (invisible slots, Hc's columns 7:13 and the retired dims
+    of XYZ slots are 0 in both); returns the largest error and the float64
+    outputs."""
+    got = measure_kernel.measure(camera, cam7, feats, is_xyz, active,
+                                 quirks=quirks)
+    ref = measure_kernel.measure_plain(camera, cam7.double(), feats.double(),
+                                       is_xyz, active, quirks=quirks)
+    m = ref[3]
+    check(failures, torch.equal(got[3], m),
+          f"{tag} visibility equal ({int(m.sum())} of {m.numel()} visible)")
+    err = 0.0
+    for name, a, b in zip(("uv", "Hc", "Hf"), ref[:3], got[:3]):
+        masked = [b[~m]] + ([b[:, :, 7:]] if name == "Hc" else []) \
+            + ([b[is_xyz][:, :, 3:]] if name == "Hf" else [])
+        check(failures, all(torch.equal(t, torch.zeros_like(t))
+                            for t in masked),
+              f"{tag} {name} masked exactly as the plain version")
+        a, b = a[m], b[m].double()
+        lim = TOL["measure_rtol"] * (a.abs() + max(float(a.abs().max()), 1.0))
+        worst = float(((b - a).abs() / lim).max())
+        err = max(err, max_abs(a, b))
+        check(failures, worst <= 1.0,
+              f"{tag} {name} within rtol 1e-6 of the float64 plain version "
+              f"(worst {worst:.3f} of the bound, abs err {max_abs(a, b):.3e})")
+    return err, ref
+
+
 def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
     """The update kernel against its float64 plain version, and the factor
     it used against the float64 masked S (L L^T); returns the errors."""
@@ -660,50 +722,27 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
     failures: list = []
     rows: dict = {}
 
-    # ---- predict
-    Pp, xp = (torch.tensor(a, **f32) for a in _spd_state(rng, N))
+    # ---- predict: the s3 state, then the large map's N = 1024 (its own
+    # generator, so the inputs of the checks after it stay as they were)
     lin, ang = cfg.ekf.linear_accel_sd ** 2, cfg.ekf.angular_accel_sd ** 2
-    x_k, P_k = predict_kernel.predict(Pp, xp, 1.0, lin, ang)
-    x_t, P_t = predict_kernel.predict_plain(Pp.double(), xp.double(), 1.0,
-                                            lin, ang)
-    ex, eP = max_abs(x_k, x_t), max_abs(P_k, P_t)
-    check(failures, ex <= TOL["predict_x"],
-          f"predict x err {ex:.3e} <= {TOL['predict_x']}")
-    check(failures, eP <= TOL["predict_P"],
-          f"predict P err {eP:.3e} <= {TOL['predict_P']}")
-    check(failures, torch.equal(P_k[13:, 13:], Pp[13:, 13:]),
-          "predict P[13:, 13:] passes through bit-exact")
-    check(failures, torch.equal(P_k, P_k.T), "predict P' exactly symmetric")
-    macs = 2 * 13 * 13 * (N - 13) + 13 * 13 * 2 * (13 * 13 + 13)
-    rows["predict"] = dict(
-        max_abs_err=max(ex, eP),
-        bytes=4 * (2 * N * N + 2 * N), flops=2 * macs,
-        kernel=lambda: predict_kernel.predict(Pp, xp, 1.0, lin, ang),
-        plain=lambda: predict_kernel.predict_plain(Pp, xp, 1.0, lin, ang))
+    rows["predict"] = check_predict(
+        failures, "predict", *(torch.tensor(a, **f32)
+                               for a in _spd_state(rng, N)), lin, ang)
+    rows["predict_n1024"] = check_predict(
+        failures, "predict_n1024", *(torch.tensor(a, **f32) for a in
+                                     _spd_state(np.random.default_rng(1024),
+                                                LARGE_N)), lin, ang)
 
     # ---- measure
     feats, is_xyz, active, cam7 = _measure_scene(rng, F)
     feats, cam7 = torch.tensor(feats, **f32), torch.tensor(cam7, **f32)
     is_xyz = torch.tensor(is_xyz, device=dev)
     active = torch.tensor(active, device=dev)
-    got = measure_kernel.measure(camera, cam7, feats, is_xyz, active)
-    ref = measure_kernel.measure_plain(camera, cam7.double(), feats.double(),
-                                       is_xyz, active)
-    check(failures, torch.equal(got[3], ref[3]),
-          f"measure visibility equal ({int(ref[3].sum())} of {F} visible)")
-    m = ref[3]
-    err = 0.0
-    for name, a, b in zip(("uv", "Hc7", "Hf"), ref[:3], got[:3]):
-        a, b = a[m], b[m].double()
-        lim = TOL["measure_rtol"] * (a.abs() + max(float(a.abs().max()), 1.0))
-        worst = float(((b - a).abs() / lim).max())
-        err = max(err, max_abs(a, b))
-        check(failures, worst <= 1.0,
-              f"measure {name} within rtol 1e-6 (worst {worst:.3f} of the "
-              f"bound, abs err {max_abs(a, b):.3e})")
+    err, ref = check_measure(failures, "measure", camera, cam7, feats,
+                             is_xyz, active, False)
     rows["measure"] = dict(
         max_abs_err=err,
-        bytes=4 * (7 + 6 * F) + 2 * F + 4 * (2 + 14 + 12) * F + F,
+        bytes=4 * (7 + 6 * F) + 2 * F + 4 * (2 + 26 + 12) * F + F,
         flops=600 * F,
         kernel=lambda: measure_kernel.measure(camera, cam7, feats, is_xyz,
                                               active),
@@ -711,27 +750,12 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
                                                    is_xyz, active))
 
     # ---- measure, the quirks variant (the parity mode's), on the same slots
-    got = measure_kernel.measure(camera, cam7, feats, is_xyz, active,
-                                 quirks=True)
-    ref = measure_kernel.measure_plain(camera, cam7.double(), feats.double(),
-                                       is_xyz, active, quirks=True)
-    check(failures, torch.equal(got[3], ref[3]),
-          "measure_quirks visibility equal")
-    err = 0.0
-    for name, a, b in zip(("uv", "Hc7", "Hf"), ref[:3], got[:3]):
-        a, b = a[m], b[m].double()
-        lim = TOL["measure_rtol"] * (a.abs() + max(float(a.abs().max()), 1.0))
-        worst = float(((b - a).abs() / lim).max())
-        err = max(err, max_abs(a, b))
-        check(failures, worst <= 1.0,
-              f"measure_quirks {name} within rtol 1e-6 of the float64 quirks "
-              f"chain (worst {worst:.3f} of the bound, abs err "
-              f"{max_abs(a, b):.3e})")
-    correct = measure_kernel.measure_plain(camera, cam7.double(),
-                                           feats.double(), is_xyz, active)
-    check(failures, max_abs(ref[1][m], correct[1][m]) > 1e-6,
-          "the quirks chain differs from the correct math (Hc7 by "
-          f"{max_abs(ref[1][m], correct[1][m]):.3e})")
+    err, quirky = check_measure(failures, "measure_quirks", camera, cam7,
+                                feats, is_xyz, active, True)
+    m = ref[3]
+    check(failures, max_abs(quirky[1][m], ref[1][m]) > 1e-6,
+          "the quirks chain differs from the correct math (Hc by "
+          f"{max_abs(quirky[1][m], ref[1][m]):.3e})")
     rows["measure_quirks"] = dict(
         rows["measure"], max_abs_err=err,
         kernel=lambda: measure_kernel.measure(camera, cam7, feats, is_xyz,
@@ -898,6 +922,13 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
 
     for name, row in rows.items():
         time_row(name, row)
+    # the per-launch floor: an empty hand-written kernel in the same harness
+    rows["floor"] = dict(
+        ms=graph_ms(lambda: cuda_lib.library().call(
+            "ekf_noop", torch.cuda.current_stream(dev).cuda_stream)),
+        card=smi_line())
+    print(f"  floor (empty kernel): {rows['floor']['ms'] * 1e3:.2f} "
+          f"us/launch on the device; {rows['floor']['card']}", flush=True)
     print(f"  timed ({time.perf_counter() - T_START:.1f} s into the run)",
           flush=True)
     return rows
@@ -1190,12 +1221,21 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           f"frames/s, {syncs} host syncs ({syncs / T_FRAMES:.3f} per "
           f"frame): {dict(sync_sites)}", flush=True)
 
-    # and once more under torch.profiler, for the time of each phase
+    # and once more under torch.profiler, for the time of each phase, with
+    # a range around each predict_measurements call for its device launches
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            chain_ranges(MEASURE_CHAIN):
         replay.run_uploaded(runtime, ulog)
         torch.cuda.synchronize()
     averages = prof.key_averages()
+    mc = chain_device(prof.events(), T_FRAMES, tuple(MEASURE_CHAIN))[
+        "filter.predict_measurements"]
+    measure_launches = mc["launches"] / mc["calls"]
+    print(f"  predict_measurements: {measure_launches:.2f} device launches "
+          f"a call ({mc['calls']:.2f} calls a frame, "
+          f"{mc['device_us'] / mc['calls']:.2f} device us a call)",
+          flush=True)
     phase_ms = phase_times(averages, T_FRAMES)
     dev_ms = device_ms(averages, T_FRAMES)
     update_us = kernel_device_us(averages, T_FRAMES, UPDATE_KERNEL_NAMES)
@@ -1234,6 +1274,7 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
                 syncs=syncs, fps_second=T_FRAMES / elapsed2,
                 phase_ms=phase_ms, device_ms=dev_ms,
                 update_kernels_us=update_us, record_s=record_s,
+                measure_launches_per_call=measure_launches,
                 sync_sites=dict(sync_sites),
                 healthy=healthy, mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -2102,12 +2143,13 @@ def main(argv: list) -> int:
             "launches_parity_replay": parity["replay"]["launches"][name],
             "launches_parity_engine": parity["engine"]["launches"][name]})
     extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
-             "cholsolve_336x1024", "brief_generic_256")
+             "cholsolve_336x1024", "brief_generic_256", "predict_n1024",
+             "floor")
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
                       "fps", "fps_second", "elapsed_s", "syncs", "sync_sites",
-                      "phase_ms",
+                      "phase_ms", "measure_launches_per_call",
                       "record_s",
                       "healthy", "mean_matched", "mean_inliers",
                       "replay_vs_recording", "launches")},

@@ -16,3 +16,13 @@ struct CamParams {
 
 // Every exported launcher returns the launch's cudaError_t (0 = success).
 static inline int ekf_last_error() { return (int)cudaGetLastError(); }
+
+// Stage marks of tools/small_kernel_clocks.py, which builds an instrumented
+// copy of a kernel with EKF_STAGE_CLOCKS and these two defined:
+// EKF_MARK(slot, dep) records clock64 in ``slot`` once the float ``dep`` is
+// computed, EKF_NOTE(slot, v) records the integer v.  They compile to
+// nothing here.
+#ifndef EKF_MARK
+#define EKF_MARK(slot, dep)
+#define EKF_NOTE(slot, value)
+#endif

@@ -1,6 +1,7 @@
 // Measurement prediction chain: for every feature slot, the predicted
 // distorted pixel, the visibility gate and the analytic Jacobians
-// Hc7 = dh/d(r, q) (2x7) and Hf = dh/d(feature) (2x6).
+// Hc = dh/d(camera) (2x13, columns 7:13 zero) and Hf = dh/d(feature)
+// (2x6), written masked, as the caller consumes them.
 //
 // Replaces the TPU kernel _kernel / measure_chain_pallas
 // (openekfmonoslam_tpu/ops/measure_kernel.py:44,237), both of its variants,
@@ -17,12 +18,26 @@
 // measurements_with_jacobians + visibility): rotate the inverse-depth or
 // XYZ point into the camera, project, distort by 10 Newton iterations plus
 // the final implicit step, then the chain rule IDJ @ FPJ @ d(p_cam)/d(...).
+// Then the caller's epilogue (openekfmonoslam_tpu/filter/measure.py:
+// 151-158): Hc and Hf multiplied by visible (0 or 1, so a non-finite
+// value in a masked slot stays non-finite, as in the PyTorch chain), Hf's
+// columns 3:6 multiplied by 0 for XYZ slots, uv set to 0 where not visible.
 //
-// Bound on the H100: launch latency.  F = 96 slots read 6 floats and write
-// 2 + 14 + 12 floats and a flag each (~11 KB), and do ~400 flops each.
-// Design: one thread per slot, no shared memory; the TPU's 128-lane
-// padding and 29-row packing are gone -- outputs are written in the
-// (F, 2), (F, 2, 7), (F, 2, 6), (F,) layouts the caller uses.
+// Bound on the H100: launch latency.  F = 96 slots read 6 floats each and
+// write 2 + 26 + 12 floats and a flag (~16 KB), ~400 flops each.  The
+// time is one thread's dependency chain, so the design shortens it:
+//   - sincosf once an angle; R(q)^T once a block, in shared memory;
+//   - the Newton loop leaves as soon as every lane of the warp sits on a
+//     fixed point or a two-value cycle (the step is a deterministic
+//     function of rd, so the result is the full loop's bit for bit), and a
+//     zero step skips the divide's slow path;
+//   - the outputs are staged in shared memory and written by the whole
+//     block in coalesced 16-byte vectors.
+// The IEEE divides stay: the bound is 1e-6 relative.  One thread computes
+// both rows of a slot's H: a split of the rows over two threads shortens
+// the tail, but it changes the compiler's multiply-add contraction and
+// with it the correct-math outputs' last bits.  EKF_MARK / EKF_NOTE are the stage marks of
+// tools/small_kernel_clocks.py (no code otherwise).
 
 #include "common.cuh"
 
@@ -30,6 +45,29 @@ namespace {
 
 constexpr int NEWTON_ITERS = 10;
 constexpr int THREADS = 128;
+constexpr int OUT_FLOATS = 2 + 26 + 12;   // uv, Hc, Hf of one slot
+
+// a / b, IEEE.  The divide's hardware check sends a zero dividend to its
+// slow path (hundreds of cycles); a zero over a positive finite divisor is
+// the dividend itself, so that case is taken apart.  The Newton steps meet
+// it at every converged lane.
+__device__ __forceinline__ float div_step(float a, float b) {
+    if (a == 0.0f && b > 0.0f && isfinite(b)) return a;
+    return a / b;
+}
+
+// n floats from shared memory to global memory in 16-byte vectors (dst
+// and src 16-byte aligned), the tail as floats
+__device__ __forceinline__ void copy_out(float* __restrict__ dst,
+                                         const float* __restrict__ src,
+                                         int n) {
+    const int n4 = n / 4;
+    for (int k = threadIdx.x; k < n4; k += blockDim.x)
+        reinterpret_cast<float4*>(dst)[k] =
+            reinterpret_cast<const float4*>(src)[k];
+    for (int k = 4 * n4 + threadIdx.x; k < n; k += blockDim.x)
+        dst[k] = src[k];
+}
 
 template <bool QUIRKS>
 __global__ void __launch_bounds__(THREADS)
@@ -38,30 +76,55 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
                const uint8_t* __restrict__ active, float* __restrict__ uv_out,
                float* __restrict__ hc_out, float* __restrict__ hf_out,
                uint8_t* __restrict__ vis_out, int F, CamParams c) {
+    __shared__ float sRt[3][3];
+    __shared__ float sR[3];
+    // the block's outputs in their global layouts: Hc, Hf, uv
+    __shared__ __align__(16) float sOut[THREADS * OUT_FLOATS];
+    float* sHc = sOut;
+    float* sHf = sOut + THREADS * 26;
+    float* sUv = sHf + THREADS * 12;
+    EKF_MARK(0, 0.0f);
+    // lanes past F compute slot F - 1 and store nothing: every lane of a
+    // warp takes part in the Newton loop's vote
     const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    if (f >= F) return;
+    const bool live = f < F;
+    const int fs = live ? f : F - 1;
 
-    const float r0 = cam7[0], r1 = cam7[1], r2 = cam7[2];
-    const float w = cam7[3], q1 = cam7[4], q2 = cam7[5], q3 = cam7[6];
-    const float w2 = w * w, x2 = q1 * q1, y2 = q2 * q2, z2 = q3 * q3;
-    // Rt[i][j] = R(q)[j][i]
-    float Rt[3][3];
-    Rt[0][0] = w2 + x2 - y2 - z2;
-    Rt[1][0] = 2 * (q1 * q2 - w * q3);
-    Rt[2][0] = 2 * (q3 * q1 + w * q2);
-    Rt[0][1] = 2 * (q1 * q2 + w * q3);
-    Rt[1][1] = w2 - x2 + y2 - z2;
-    Rt[2][1] = 2 * (q2 * q3 - w * q1);
-    Rt[0][2] = 2 * (q3 * q1 - w * q2);
-    Rt[1][2] = 2 * (q2 * q3 + w * q1);
-    Rt[2][2] = w2 - x2 - y2 + z2;
+    if (threadIdx.x == 0) {
+        const float w = cam7[3], q1 = cam7[4], q2 = cam7[5], q3 = cam7[6];
+        const float w2 = w * w, x2 = q1 * q1, y2 = q2 * q2, z2 = q3 * q3;
+        // Rt[i][j] = R(q)[j][i]
+        sRt[0][0] = w2 + x2 - y2 - z2;
+        sRt[1][0] = 2 * (q1 * q2 - w * q3);
+        sRt[2][0] = 2 * (q3 * q1 + w * q2);
+        sRt[0][1] = 2 * (q1 * q2 + w * q3);
+        sRt[1][1] = w2 - x2 + y2 - z2;
+        sRt[2][1] = 2 * (q2 * q3 - w * q1);
+        sRt[0][2] = 2 * (q3 * q1 - w * q2);
+        sRt[1][2] = 2 * (q2 * q3 + w * q1);
+        sRt[2][2] = w2 - x2 - y2 + z2;
+        sR[0] = cam7[0];
+        sR[1] = cam7[1];
+        sR[2] = cam7[2];
+    }
 
-    const float* fe = feats + 6 * (size_t)f;
+    const float* fe = feats + 6 * (size_t)fs;
     const float theta = fe[3], phi = fe[4], rho = fe[5];
-    const float cph = cosf(phi), sph = sinf(phi);
-    const float cth = cosf(theta), sth = sinf(theta);
-    const float ox = fe[0] - r0, oy = fe[1] - r1, oz = fe[2] - r2;
-    const bool xyz = is_xyz[f] != 0;
+    const float f0 = fe[0], f1 = fe[1], f2 = fe[2];
+    const bool xyz = is_xyz[fs] != 0;
+    const bool act = active[fs] != 0;
+    float cph, sph, cth, sth;
+    sincosf(phi, &sph, &cph);
+    sincosf(theta, &sth, &cth);
+    EKF_MARK(1, cph + sph + cth + sth);
+    __syncthreads();
+
+    float Rt[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) Rt[i][j] = sRt[i][j];
+    const float ox = f0 - sR[0], oy = f1 - sR[1], oz = f2 - sR[2];
     // a = XYZ ? (p - r) : rho (p0 - r) + m(theta, phi)
     const float ax = xyz ? ox : rho * ox + cph * sth;
     const float ay = xyz ? oy : rho * oy + (-sph);
@@ -81,22 +144,39 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     const float r2m = fmaxf(mx * mx + my * my, 1e-12f);
     const float ru = sqrtf(r2m);
     float rd = ru / (1.0f + c.k1 * r2m + c.k2 * r2m * r2m);
+    // The step is a deterministic function of rd, so once rd repeats the
+    // rest of the loop is known: a fixed point (rd' == rd) stays, and a
+    // lane that alternates between two values (rd' == the rd before)
+    // ends on the one the remaining step count's parity picks.  The warp
+    // leaves when every lane is one or the other, with the full loop's
+    // result bit for bit.  (Lanes converge in 3 or 4 steps; one in
+    // about 30 alternates in the last bit.)
+    EKF_NOTE(5, NEWTON_ITERS);
+    float prev = __uint_as_float(0xffffffffu);   // no step yields this NaN
     for (int it = 0; it < NEWTON_ITERS; ++it) {
         const float rd2 = rd * rd;
         const float fv = rd + c.k1 * rd2 * rd + c.k2 * rd2 * rd2 * rd - ru;
         const float fp = 1.0f + 3.0f * c.k1 * rd2 + 5.0f * c.k2 * rd2 * rd2;
-        rd = rd - fv / fp;
+        const float next = rd - div_step(fv, fp);
+        const bool fixed = __float_as_uint(next) == __float_as_uint(rd);
+        const bool cycle = __float_as_uint(next) == __float_as_uint(prev);
+        prev = rd;
+        rd = next;
+        if (__all_sync(0xffffffffu, fixed || cycle)) {
+            if (!fixed && ((NEWTON_ITERS - it - 1) & 1)) rd = prev;
+            EKF_NOTE(5, it + 1);
+            break;
+        }
     }
+    EKF_MARK(2, rd);
     // final step: gp = g'(rd) at the pre-step radius feeds the derivative
     const float rds = rd, rd2s = rd * rd;
     const float fvs = rds + c.k1 * rd2s * rds + c.k2 * rd2s * rd2s * rds - ru;
     const float gp = 1.0f + 3.0f * c.k1 * rd2s + 5.0f * c.k2 * rd2s * rd2s;
-    rd = rds - fvs / gp;
+    rd = rds - div_step(fvs, gp);
     const float rd2 = rd * rd;
     const float d = 1.0f + c.k1 * rd2 + c.k2 * rd2 * rd2;
     const float ud = c.cx + du / d, vd = c.cy + dv / d;
-    uv_out[2 * f] = ud;
-    uv_out[2 * f + 1] = vd;
 
     float i00, i01, i10, i11;
     if (QUIRKS) {
@@ -132,12 +212,13 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     const float p00 = i00 * f00, p01 = i01 * f11, p02 = i00 * f02 + i01 * f12;
     const float p10 = i10 * f00, p11 = i11 * f11, p12 = i10 * f02 + i11 * f12;
 
-    float* hc = hc_out + 14 * (size_t)f;   // (2, 7) row-major
-    float* hf = hf_out + 12 * (size_t)f;   // (2, 6) row-major
+    float hc[14];   // (2, 7) row-major: dh/dr, dh/dq
+    float hf[12];   // (2, 6) row-major
     const float s = xyz ? 1.0f : rho;
     const float inv = xyz ? 0.0f : 1.0f;
     // pR[j] = proj @ (column j of Rt); dh/dr's column 1 loses Rt[0][1]
     // under QUIRKS (the slip)
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
         const float pr0 = p00 * Rt[0][j] + p01 * Rt[1][j] + p02 * Rt[2][j];
         const float pr1 = p10 * Rt[0][j] + p11 * Rt[1][j] + p12 * Rt[2][j];
@@ -151,7 +232,7 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     }
 
     // dh/dq through the conjugate quaternion (measure_fast.py)
-    const float cw = w, cx_ = -q1, cy_ = -q2, cz_ = -q3;
+    const float cw = cam7[3], cx_ = -cam7[4], cy_ = -cam7[5], cz_ = -cam7[6];
     const float cq[4][3] = {
         {2 * (cw * ax - cz_ * ay + cy_ * az), 2 * (cz_ * ax + cw * ay - cx_ * az),
          2 * (-cy_ * ax + cx_ * ay + cw * az)},
@@ -161,6 +242,7 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
          2 * (-cw * ax + cz_ * ay - cy_ * az)},
         {2 * (-cz_ * ax - cw * ay + cx_ * az), 2 * (cw * ax - cz_ * ay + cy_ * az),
          2 * (cx_ * ax + cy_ * ay + cz_ * az)}};
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
         const float sg = k == 0 ? 1.0f : -1.0f;
         hc[3 + k] = sg * (p00 * cq[k][0] + p01 * cq[k][1] + p02 * cq[k][2]);
@@ -173,6 +255,7 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
     const float vph[3] = {-sph * sth, -cph, -sph * cth};   // dm/dphi
     const float voff[3] = {ox, oy, oz};                     // p0 - r
     const float* vs[3] = {vth, vph, voff};
+#pragma unroll
     for (int col = 0; col < 3; ++col) {
         const float* v = vs[col];
         const bool rotate = !(QUIRKS && col == 2);
@@ -185,30 +268,60 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
         hf[3 + col] = inv * (p00 * t0 + p01 * t1 + p02 * t2);
         hf[9 + col] = inv * (p10 * t0 + p11 * t1 + p12 * t2);
     }
-
     // visibility: active, in front and inside the FOV (unclamped p_cam),
     // and inside the image
     const bool fov = (pz_raw > 0.0f) && (fabsf(px) < pz_raw * c.tan_x)
                      && (fabsf(py) < pz_raw * c.tan_y);
     const bool img = (ud > 0.0f) && (ud < c.pixels_x) && (vd > 0.0f)
                      && (vd < c.pixels_y);
-    vis_out[f] = (active[f] != 0) && fov && img;
+    const bool vis = act && fov && img;
+
+    // the masked outputs, staged in shared memory in the global layouts
+    // (Hc (F, 2, 13), Hf (F, 2, 6), uv (F, 2)), then written by the whole
+    // block in coalesced 16-byte vectors
+    const int t = threadIdx.x;
+    const float vm = vis ? 1.0f : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 26; ++e) {
+        const int row = e / 13, col = e % 13;
+        sHc[26 * t + e] = col < 7 ? hc[7 * row + col] * vm : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+        // retired dims of converted-XYZ slots carry no Jacobian
+        const float dim = (k % 6 < 3 || !xyz) ? 1.0f : 0.0f;
+        sHf[12 * t + k] = hf[k] * vm * dim;
+    }
+    sUv[2 * t] = vis ? ud : 0.0f;
+    sUv[2 * t + 1] = vis ? vd : 0.0f;
+    if (live) vis_out[f] = vis;
+    EKF_MARK(3, hc[0] + hc[6] + hc[7] + hc[13] + hf[0] + hf[5] + hf[6]
+                + hf[11]);
+    __syncthreads();
+
+    const int first = blockIdx.x * THREADS;
+    const int n = min(THREADS, F - first);
+    copy_out(hc_out + 26 * (size_t)first, sHc, 26 * n);
+    copy_out(hf_out + 12 * (size_t)first, sHf, 12 * n);
+    copy_out(uv_out + 2 * (size_t)first, sUv, 2 * n);
+    EKF_MARK(4, 0.0f);
 }
 
 }  // namespace
 
-// ``quirks`` != 0 launches the QUIRKS instantiation.
+// ``quirks`` != 0 launches the QUIRKS instantiation.  uv, hc and hf must
+// be 16-byte aligned (fresh allocations are).
 EKF_EXPORT int ekf_measure(const float* cam7, const float* feats,
                            const uint8_t* is_xyz, const uint8_t* active,
-                           float* uv, float* hc7, float* hf, uint8_t* visible,
+                           float* uv, float* hc, float* hf, uint8_t* visible,
                            int F, int quirks, const CamParams* cam,
                            void* stream) {
     const int blocks = (F + THREADS - 1) / THREADS;
     if (quirks)
         measure_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            cam7, feats, is_xyz, active, uv, hc7, hf, visible, F, *cam);
+            cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
     else
         measure_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            cam7, feats, is_xyz, active, uv, hc7, hf, visible, F, *cam);
+            cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
     return ekf_last_error();
 }

@@ -4,9 +4,10 @@
 Reference: MeasurementPrediction.cpp.  For every slot: the predicted
 distorted pixel, the visibility gate, the 2-row Jacobian
 H_i = [dh/d(camera) | dh/d(feature)] and S_i = H_i P H_i^T + I.  The
-per-slot chain is one kernel on the GPU (ops/measure_kernel.py); the
-shared H P / H P H^T products stay PyTorch matmuls (true fp32: the port
-turns TF32 off where the path starts, engine/step.py).
+per-slot chain, with its masks, is one kernel on the GPU
+(ops/measure_kernel.py); the shared H P / H P H^T products stay PyTorch
+matmuls (true fp32: the port turns TF32 off where the path starts,
+engine/step.py).
 """
 
 from __future__ import annotations
@@ -67,25 +68,13 @@ def predict_measurements(state: SlamState, camera: Camera,
     """h + H + S for every slot (predictCameraMeasurements,
     MeasurementPrediction.cpp:705-719).  ``quirks`` selects the
     reference's bug-compatible H chain (the parity mode)."""
-    F = state.n_features
     dtype = state.P.dtype
-    uv, Hc7, Hf, visible = measure_kernel.measure(
+    uv, Hc, Hf, visible = measure_kernel.measure(
         camera, state.x[:7], state.features, state.is_xyz, state.active,
         quirks=quirks)
-
-    vis = visible[:, None, None].to(dtype)
-    Hc = torch.cat([Hc7 * vis, torch.zeros((F, 2, CAM_DIM - 7), dtype=dtype,
-                                           device=Hc7.device)], dim=-1)
-    Hf = Hf * vis
-    # retired dims of converted-XYZ slots carry no Jacobian
-    first3 = torch.arange(FEAT_DIM, device=Hf.device) < 3
-    feat_dim_mask = first3[None, :] | ~state.is_xyz[:, None]
-    Hf = Hf * feat_dim_mask[:, None, :].to(dtype)
-
     HP, Sfull = hp_products(state.P, Hc, Hf, layout=hp_layout)
     S = diag_blocks_2x2(Sfull) + torch.eye(2, dtype=dtype,
                                            device=Sfull.device)[None]
-    uv = torch.where(visible[:, None], uv, torch.zeros_like(uv))
     return Prediction(uv=uv, visible=visible, Hc=Hc, Hf=Hf, S=S, HP=HP,
                       Sfull=Sfull)
 

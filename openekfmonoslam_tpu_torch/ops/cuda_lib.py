@@ -81,6 +81,7 @@ _SIGNATURES = {
     "ekf_brief_generic": [_P, _I, _I, _I, _P, _I, _P, _P],
     "ekf_sinv": [_P] * 11 + [_I, _P],
     "ekf_cholsolve": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "ekf_noop": [_P],
 }
 
 

@@ -6,12 +6,15 @@ constant-velocity motion model, the analytic F, Qc = G diag(q) G^T, and
 the covariance strips P'[0:13, :] = F P[0:13, :], P'[:, 0:13] = P[:, 0:13]
 F^T, corner F P00 F^T + Qc; every other entry of P passes through.
 
-Bound on the H100: bytes.  The output is out of place, so the kernel
-moves 2 N^2 floats (3.3 MB at N = 640, ~1 us at 3.35 TB/s) and does
-26 N multiply-adds; at N = 640 launch latency dominates.  The TPU kernel
-rewrites rows 0:13 in place and reads them back for the columns; the CUDA
-grid runs in parallel, so every entry is computed from the original P and
-the corner from P00 directly (csrc/predict.cu).
+Bound on the H100: bytes.  The output is out of place (the JAX step
+donates nothing, so the caller's P stays valid), so the kernel moves
+2 N^2 floats (3.3 MB at N = 640, ~1 us at 3.35 TB/s) and does 26 N
+multiply-adds.  The TPU kernel rewrites rows 0:13 in place and reads them
+back for the columns; the CUDA grid runs in parallel, so every entry is
+computed from the original P and the corner from P00 directly.  Its
+blocks split by role: copy blocks move P[13:, 16:] in 16-byte vectors
+with no prologue, strip blocks build F and Qc and compute rows and
+columns 0:13 (csrc/predict.cu).
 
 ``predict`` is the wrapper: a CPU tensor runs ``predict_plain`` (the
 filter/predict.py chain), a CUDA tensor launches the kernel or raises.

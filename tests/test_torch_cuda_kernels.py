@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain versions, on the card, at shapes
 the main path does not reach: ragged tiles, one slot, several blocks, an S
-too large for shared memory (the device-memory factorization), odd
+too large for shared memory (the device-memory factorization), the
+predict kernel's scalar fallback (N % 4 != 0, an unaligned base), odd
 frame sizes and other STAR and BRIEF settings (both STAR routes, both
 BRIEF variants), the S-inverse from M = 1 to
-3100 and cond 1e2 to 1e6, the measure kernel's quirks variant at F = 1 to
-168, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
+3100 and cond 1e2 to 1e6, both measure variants at F = 1 to 513 with
+their masks, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
 at cond 1e2 to 1e4.  The filter kernels are held against float64;
 STAR and BRIEF must equal their float32 plain versions bit for bit.
 ``chip_smoke.py`` checks the main path's shapes.
@@ -55,13 +56,20 @@ def _err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.parametrize("N", [13, 200, 1037])
-def test_predict_kernel(dev, N):
+@pytest.mark.parametrize("N,offset", [(13, 0), (19, 0), (200, 0), (640, 0),
+                                      (640, 1), (645, 0), (1037, 0)])
+def test_predict_kernel(dev, N, offset):
+    """Both data paths: 16-byte vectors where N % 4 == 0 and the base is
+    aligned (200, 640), scalars where N % 4 != 0 (13, 19, 645, 1037) or
+    the base is not (640 at an offset of one float)."""
     rng = np.random.default_rng(N)
-    P, x = _f32(_spd(rng, N), dev), rng.standard_normal(N) * 0.1
+    P64, x = _spd(rng, N), rng.standard_normal(N) * 0.1
     q = rng.standard_normal(4)
     x[3:7] = q / np.linalg.norm(q)
     x = _f32(x, dev)
+    buf = torch.zeros(N * N + offset, dtype=torch.float32, device=dev)
+    P = buf[offset:].view(N, N)
+    P.copy_(_f32(P64, dev))
     x_k, P_k = predict_kernel.predict(P, x, 1.0, 1e-6, 4e-6)
     x_t, P_t = predict_kernel.predict_plain(P.double(), x.double(), 1.0,
                                             1e-6, 4e-6)
@@ -86,23 +94,35 @@ def _measure_inputs(rng, F, dev):
             torch.tensor(rng.random(F) < 0.9, device=dev))
 
 
-@pytest.mark.parametrize("F", [1, 37, 300])
+def _check_measure(got, ref, is_xyz):
+    """The kernel's masked outputs against the float64 plain version's:
+    visibility equal, the visible slots within 1e-6 relative, and the
+    masks exact (invisible slots, Hc's columns 7:13 and the retired dims
+    of XYZ slots are 0)."""
+    assert torch.equal(got[3], ref[3])
+    m = ref[3]
+    assert got[1].shape == ref[1].shape == (m.numel(), 2, 13)
+    for a, b in zip(ref[:3], got[:3]):
+        assert not b[~m].any()
+        a, b = a[m], b[m].double()
+        if a.numel():
+            lim = 1e-6 * (a.abs() + max(float(a.abs().max()), 1.0))
+            assert bool(((b - a).abs() <= lim).all())
+    assert not got[1][..., 7:].any()
+    assert not got[2][is_xyz][..., 3:].any()
+
+
+@pytest.mark.parametrize("F", [1, 33, 37, 168, 300, 513])
 def test_measure_kernel(dev, F):
     cam7, feats, is_xyz, active = _measure_inputs(
         np.random.default_rng(F), F, dev)
     got = measure_kernel.measure(CAM, cam7, feats, is_xyz, active)
     ref = measure_kernel.measure_plain(CAM, cam7.double(), feats.double(),
                                        is_xyz, active)
-    assert torch.equal(got[3], ref[3])
-    m = ref[3]
-    for a, b in zip(ref[:3], got[:3]):
-        a, b = a[m], b[m].double()
-        if a.numel():
-            lim = 1e-6 * (a.abs() + max(float(a.abs().max()), 1.0))
-            assert bool(((b - a).abs() <= lim).all())
+    _check_measure(got, ref, is_xyz)
 
 
-@pytest.mark.parametrize("F", [1, 7, 96, 168])
+@pytest.mark.parametrize("F", [1, 7, 33, 96, 168, 513])
 def test_measure_kernel_quirks_variant(dev, F):
     """The QUIRKS instantiation against the float64 plain quirks chain, to
     the measure bound (1e-6 relative); it counts as a quirks launch."""
@@ -118,13 +138,8 @@ def test_measure_kernel_quirks_variant(dev, F):
                                        is_xyz, active, quirks=True)
     correct = measure_kernel.measure_plain(CAM, cam7.double(),
                                            feats.double(), is_xyz, active)
-    assert torch.equal(got[3], ref[3])
+    _check_measure(got, ref, is_xyz)
     m = ref[3]
-    for a, b in zip(ref[:3], got[:3]):
-        a, b = a[m], b[m].double()
-        if a.numel():
-            lim = 1e-6 * (a.abs() + max(float(a.abs().max()), 1.0))
-            assert bool(((b - a).abs() <= lim).all())
     if int(m.sum()) > 1:        # the variant differs from the correct math
         assert not torch.allclose(ref[1][m], correct[1][m], rtol=0,
                                   atol=1e-9)

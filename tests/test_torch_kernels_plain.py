@@ -108,6 +108,18 @@ def _measure_scene(rng):
     return feats, is_xyz, active, cam7
 
 
+def _check_masks(visible, is_xyz, uv, Hc, Hf):
+    """measure_plain's masks (openekfmonoslam_tpu/filter/measure.py:
+    151-158): invisible slots all zero, Hc's columns 7:13 zero, the
+    retired dims of visible XYZ slots zero.  The visible slots' values
+    are compared with the unmasked JAX chain, with Hf's retired dims of
+    XYZ slots, which that chain already computes as 0."""
+    for t in (uv, Hc, Hf):
+        assert not _np(t)[~visible].any()
+    assert not _np(Hc)[..., 7:].any()
+    assert not _np(Hf)[is_xyz][..., 3:].any()
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_measure_plain_matches_jax_chain(dtype):
     jd, td = DTYPES[dtype]
@@ -124,7 +136,8 @@ def test_measure_plain_matches_jax_chain(dtype):
     np.testing.assert_array_equal(_np(vis2), np.asarray(vis1))
     assert _np(vis2).sum() >= F // 2
     m = np.asarray(vis1)
-    for a, b in ((uv1, uv2), (Hc1, Hc2), (Hf1, Hf2)):
+    _check_masks(m, is_xyz, uv2, Hc2, Hf2)
+    for a, b in ((uv1, uv2), (Hc1, Hc2[..., :7]), (Hf1, Hf2)):
         a, b = np.asarray(a)[m], _np(b)[m]
         if dtype == "float64":
             np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10)
@@ -155,7 +168,8 @@ def test_measure_plain_quirks_matches_jax_chain(dtype):
             measure_kernel.QUIRKS_LAUNCHES.count) == (0, 0)
     m = _np(got[3])
     assert m.sum() >= F // 2
-    for a, b in zip(want, got[:3]):
+    _check_masks(m, is_xyz, *got[:3])
+    for a, b in zip(want, (got[0], got[1][..., :7], got[2])):
         a, b = np.asarray(a)[m], _np(b)[m]
         if dtype == "float64":
             np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10)

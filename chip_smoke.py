@@ -19,10 +19,14 @@ Phases, each of which passes or raises (the script then exits non-zero):
               on the path's own frame-T/2 data, in phase 3); then each
               kernel's device time (CUDA graph of 200 launches), its eager
               time, the plain version's time and its bound, and for the
-              update and the S-inverse each launch's device time by kernel
-              name under torch.profiler; predict also at the large map's
-              N = 1024, and the per-launch floor (an empty hand-written
-              kernel in the same CUDA-graph harness);
+              update, the S-inverse and the Cholesky solve each launch's
+              device time by kernel name under torch.profiler; predict
+              also at the large map's N = 1024, and the per-launch floor
+              (an empty hand-written kernel in the same CUDA-graph
+              harness).  The add path's two launches, init (A) and
+              init_augment (B), are held together against the plain
+              version in float64 at 16, 1 and 96 valid of 96 candidates
+              and with two valid candidates on one slot;
   3. path     SlamRuntime(SlamConfig()) on the card at full s3 width: a
               closed-loop synthetic scene records an injection log (about
               160 points, a smooth camera path, 1 px noise, 5% outliers),
@@ -31,10 +35,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
               to 0 just before and read just after, which gives frames/s;
               then two more replays: one counts host syncs per frame
               under PyTorch's sync debug mode, one takes each phase's
-              host and device ms from torch.profiler's ranges and the
-              device launches a call of predict_measurements;
+              host and device ms from torch.profiler's ranges, the
+              device launches a call of predict_measurements and of an
+              addition (filter/features._add_features_impl);
   4. replay   the same log through the port on the CPU in float64 (the
               plain path), held against the card's float32 trajectory;
+              then in float32, for the frames whose inlier mask flips
+              between the card and the plain float32 path (reported);
   5. live     the live entry points on 640x480 synthetic frames (a window
               sliding over a blob texture) under the s3 profile (STAR,
               BRIEF-256, descriptor matching with subpixel refinement):
@@ -167,9 +174,15 @@ KERNELS = {
     "update": dict(counter=update_kernel.LAUNCHES,
                    source="openekfmonoslam_tpu_torch/csrc/update.cu",
                    replaces="openekfmonoslam_tpu/ops/update_kernel.py:73"),
+    # the add path's two launches: (A) the chain with the compact operands,
+    # (B) the covariance augmentation, which carries the work the TPU
+    # kernel's caller ran after it in XLA (filter/features.py:177-224)
     "init": dict(counter=init_kernel.LAUNCHES,
                  source="openekfmonoslam_tpu_torch/csrc/init.cu",
                  replaces="openekfmonoslam_tpu/ops/init_kernel.py:48"),
+    "init_augment": dict(counter=init_kernel.AUGMENT_LAUNCHES,
+                         source="openekfmonoslam_tpu_torch/csrc/init.cu",
+                         replaces="openekfmonoslam_tpu/ops/init_kernel.py:48"),
     # _resp_kernel (:45) and _score_kernel (:69) in one launch: the route
     # that stages the integral-image window (max size up to 44) ...
     "star": dict(counter=star_kernel.LAUNCHES,
@@ -220,6 +233,10 @@ TOL = {
     "update_x": 5e-5, "update_P": 5e-4, "update_sym": 1e-5,
     "update_factor_rel": 1e-4,      # L L^T of the update's factor vs S
     "init_feats": 1e-5, "init_J1": 2e-2, "init_J2": 1e-4,
+    # P grown by the add path, relative to its largest entry: new rows and
+    # columns are sums of four products of entries of P and J1, whose
+    # entries reach the tens for a ray near the vertical
+    "init_P_rel": 1e-5,
     # tests/test_cholsolve.py:32 on A A^T + 10 I; 1e-6 cond on spd_cond
     "chol_rel": 1e-4,
 }
@@ -329,10 +346,14 @@ FRONTEND_CHAINS = {"frontend.smooth": (brief, "smooth"),
 # kernel with H P and S beside it)
 MEASURE_CHAIN = {"filter.predict_measurements": (meas_mod,
                                                  "predict_measurements")}
+# ... and its additions (the init kernels with the scatters beside them)
+ADD_CHAIN = {"filter.add_features": (feat_mod, "_add_features_impl")}
 # ... of the S-inverse (csrc/sinv.cu) and of the fused update (update.cu)
 SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
                      "sinv_product<0>", "sinv_product<1>", "sinv_product<2>")
 UPDATE_KERNEL_NAMES = ("update_factor", "update_solve", "update_downdate")
+# ... of the add path (csrc/init.cu)
+ADD_KERNEL_NAMES = ("init_chain", "init_augment<true>", "init_augment<false>")
 
 
 def print_device(dev_ms: float, kernels_us: dict) -> None:
@@ -711,6 +732,72 @@ def check_star_brief(failures, tag: str, gray, frontend,
                 brief_bits=bits, peaks=peaks)
 
 
+# operations of (A) a candidate: the chain (about 250) and the compact
+# operands B = J1 P77 and B J1^T + J2 diag(r) J2^T (about 230)
+INIT_FLOPS = 480
+# valid candidates of phase 2's timed augmentation (of C = 96), and the
+# checks' cases: (valid candidates, a duplicate slot?)
+AUG_VALID = 16
+AUG_CASES = ((AUG_VALID, False), (1, False), (96, False), (12, True))
+
+
+def augment_case(rng, C: int, F: int, valid: int, duplicate: bool, dev):
+    """slots (C,) int32 and ok (C,): ``valid`` candidates at shuffled slots
+    of the F, the rest invalid at slot F; with ``duplicate``, two valid
+    candidates name one slot."""
+    slots = np.full(C, F, np.int32)
+    ok = np.zeros(C, bool)
+    where = rng.choice(C, valid, replace=False)
+    slots[where] = rng.choice(F, valid, replace=False)
+    ok[where] = True
+    if duplicate:
+        slots[where[2]] = slots[where[0]]
+    return (torch.tensor(slots, device=dev), torch.tensor(ok, device=dev))
+
+
+def check_augment(failures, camera, P, c7, cuv, rho0, r_add, F) -> dict:
+    """(A) + (B) against the plain version in float64 on the CPU (where a
+    dim two valid candidates name goes to the higher one, as in the
+    kernel) at each of AUG_CASES; the elements of no new dim bit for bit.
+    The row of (B) at AUG_VALID valid candidates."""
+    rng = np.random.default_rng(10)
+    N, C = P.shape[0], cuv.shape[0]
+    cpu = [t.double().cpu() for t in (P, c7, cuv)]
+    err = 0.0
+    for valid, dup in AUG_CASES:
+        slots, ok = augment_case(rng, C, F, valid, dup, P.device)
+        feats, P_new = init_kernel.add_covariance(camera, P, c7, cuv, slots,
+                                                  ok, rho0, r_add)
+        f64, P64 = init_kernel.add_covariance_plain(
+            camera, *cpu, slots.cpu(), ok.cpu(), rho0, r_add)
+        new = torch.zeros((N + 1,), dtype=torch.bool)
+        new[init_kernel.new_dims(slots, ok, N).reshape(-1).cpu()] = True
+        old = ~new[:N]
+        e = max_abs(P_new.cpu(), P64)
+        limit = TOL["init_P_rel"] * max(1.0, float(P64.abs().max()))
+        same = torch.equal(P_new.cpu()[old][:, old], P.cpu()[old][:, old])
+        check(failures, e <= limit and same
+              and max_abs(feats.cpu(), f64) <= TOL["init_feats"],
+              f"init (A) + (B) at {valid} valid of {C}"
+              + (", a duplicate slot" if dup else "")
+              + f": P_new err {e:.3e} <= {limit:.1e}, the other "
+              f"elements bit-identical: {same}")
+        err = max(err, e)
+        if valid == AUG_VALID and not dup:
+            timed = (slots, ok)
+    slots, ok = timed
+    ops = init_kernel._chain_cuda(camera, c7, cuv, rho0, P, r_add)[3]
+    _, J1, J2 = init_kernel.init_plain(camera, c7, cuv, rho0)
+    k6 = 6 * AUG_VALID
+    return dict(
+        max_abs_err=err, valid=AUG_VALID,
+        bytes=2 * N * N * 4 + C * (4 * init_kernel.OPS + 4 + 1),
+        # a new element: at most four multiply-adds
+        flops=8 * (2 * k6 * N - k6 * k6),
+        kernel=lambda: init_kernel.augment_cuda(P, ops, slots, ok),
+        plain=lambda: init_kernel.augment_plain(P, J1, J2, slots, ok, r_add))
+
+
 def phase_kernels(cfg: SlamConfig, camera, frontend,
                   dev=torch.device("cuda", 0)) -> dict:
     """Each kernel against its plain version (float64 for the filter
@@ -785,13 +872,17 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
         plain=lambda: update_kernel.update_plain(P, x, HP, Sfull, uv, z,
                                                  use, pe))
 
-    # ---- init
+    # ---- init: (A) the chain with the compact operands, as the add path
+    # runs it on the s3 state, and (B) the augmentation of P
     q = rng.standard_normal(4)
     c7 = torch.tensor(np.concatenate([rng.normal(0, 0.1, 3),
                                       q / np.linalg.norm(q)]), **f32)
     cuv = torch.tensor(rng.uniform(20, 600, (C, 2)), **f32)
     rho0 = cfg.ekf.init_inv_depth_rho
-    got = init_kernel.init_chain(camera, c7, cuv, rho0)
+    r_add = (cfg.camera.pixel_error_x ** 2, cfg.camera.pixel_error_y ** 2,
+             cfg.ekf.inverse_depth_rho_sd ** 2)
+    Pa = torch.tensor(_spd_state(np.random.default_rng(9), N)[0], **f32)
+    got = init_kernel._chain_cuda(camera, c7, cuv, rho0, Pa, r_add)[:3]
     ref = init_kernel.init_plain(camera, c7.double(), cuv.double(), rho0)
     errs = [max_abs(a, b) for a, b in zip(got, ref)]
     for name, err_i, tol in zip(("feats", "J1", "J2"), errs,
@@ -800,9 +891,13 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
         check(failures, err_i <= tol, f"init {name} err {err_i:.3e} <= {tol}")
     rows["init"] = dict(
         max_abs_err=max(errs),
-        bytes=4 * (7 + (2 + 6 + 42 + 18) * C), flops=250 * C,
-        kernel=lambda: init_kernel.init_chain(camera, c7, cuv, rho0),
+        bytes=4 * (7 + 49 + (2 + 6 + 42 + 18 + init_kernel.OPS) * C),
+        flops=INIT_FLOPS * C,
+        kernel=lambda: init_kernel._chain_cuda(camera, c7, cuv, rho0, Pa,
+                                               r_add),
         plain=lambda: init_kernel.init_plain(camera, c7, cuv, rho0))
+    aug = check_augment(failures, camera, Pa, c7, cuv, rho0, r_add, F)
+    rows["init_augment"] = aug
 
     # ---- star, brief: the main path's 640x480 frame, then an odd shape
     h, w = LIVE_HW
@@ -884,7 +979,7 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
                                 torch.linalg.solve(S_.double(),
                                                    B_.double())),
             M=m_, K=k_, bytes=4 * (m_ * m_ + 2 * m_ * k_),
-            flops=m_ ** 3 / 3 + 2 * m_ * m_ * k_,
+            flops=m_ ** 3 / 3 + 2 * m_ * m_ * k_, split=True,
             kernel=lambda S_=S_, B_=B_: cholsolve.chol_solve_cuda(S_, B_),
             plain=lambda S_=S_, B_=B_: cholsolve.chol_solve_plain(S_, B_),
             library=lambda S_=S_, B_=B_: torch.linalg.solve(S_, B_))
@@ -1222,10 +1317,11 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           f"frame): {dict(sync_sites)}", flush=True)
 
     # and once more under torch.profiler, for the time of each phase, with
-    # a range around each predict_measurements call for its device launches
+    # a range around each predict_measurements call and each addition for
+    # their device launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
-            chain_ranges(MEASURE_CHAIN):
+            chain_ranges({**MEASURE_CHAIN, **ADD_CHAIN}):
         replay.run_uploaded(runtime, ulog)
         torch.cuda.synchronize()
     averages = prof.key_averages()
@@ -1236,6 +1332,24 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           f"a call ({mc['calls']:.2f} calls a frame, "
           f"{mc['device_us'] / mc['calls']:.2f} device us a call)",
           flush=True)
+    # the addition's PyTorch launches (the range does not see the two
+    # ctypes launches of csrc/init.cu, which kernel_device_us reads)
+    ac = chain_device(prof.events(), T_FRAMES, tuple(ADD_CHAIN))[
+        "filter.add_features"]
+    add_us = kernel_device_us(averages, T_FRAMES, ADD_KERNEL_NAMES)
+    add_call = dict(calls_per_frame=ac["calls"],
+                    torch_launches=ac["launches"] / ac["calls"],
+                    torch_device_us=ac["device_us"] / ac["calls"],
+                    host_us=ac["host_us"] / ac["calls"],
+                    kernels_us={k: v["us_per_frame"] / ac["calls"]
+                                for k, v in add_us.items()})
+    print(f"  additions: {add_call['torch_launches']:.2f} PyTorch device "
+          f"launches a call plus the two of csrc/init.cu "
+          f"({ac['calls']:.2f} calls a frame; PyTorch's "
+          f"{add_call['torch_device_us']:.2f} device us, "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      add_call["kernels_us"].items())
+          + f" us; host {add_call['host_us']:.2f} us a call)", flush=True)
     phase_ms = phase_times(averages, T_FRAMES)
     dev_ms = device_ms(averages, T_FRAMES)
     update_us = kernel_device_us(averages, T_FRAMES, UPDATE_KERNEL_NAMES)
@@ -1253,6 +1367,9 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
     check(failures, launches["update"] == 2 * T, f"update launches {2 * T}")
     check(failures, launches["sinv"] == 0, "no S-inverse launch")
     check(failures, launches["init"] >= 1, "init launched at least once")
+    check(failures, launches["init_augment"] == launches["init"],
+          "each addition launches (A) and (B) once "
+          f"({launches['init']}, {launches['init_augment']})")
     check(failures, bool(torch.isfinite(state.x).all())
           and bool(torch.isfinite(state.P).all()), "final x and P finite")
     dm = dim_active_mask(state)
@@ -1275,6 +1392,7 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
                 phase_ms=phase_ms, device_ms=dev_ms,
                 update_kernels_us=update_us, record_s=record_s,
                 measure_launches_per_call=measure_launches,
+                add_call=add_call,
                 sync_sites=dict(sync_sites),
                 healthy=healthy, mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -1330,8 +1448,26 @@ def phase_replay(path: dict, failures: list) -> dict:
           f"inlier masks identical on >= {REPLAY_MASKS_SAME} of frames")
     check(failures, agree["visible_same"] >= REPLAY_MASKS_SAME,
           f"visibility masks identical on >= {REPLAY_MASKS_SAME} of frames")
+    # the rounding of the kernels judged against the plain float32 path's
+    # own: the same log through the port's plain versions on the CPU in
+    # float32, and the frames whose inlier mask differs (reported only)
+    _, recs32 = replay.replay_records(SlamRuntime(SlamConfig(), device="cpu"),
+                                      path["log"])
+
+    def flips(a, b):
+        return [t + 1 for t, (x, y) in enumerate(zip(a, b))
+                if not np.array_equal(x, y)]
+    card = [r.inliers.cpu().numpy() for r in recs]
+    plain32 = [r.inliers.numpy() for r in recs32]
+    f64 = [r.inliers.numpy() for r in recs64]
+    mask_flips = dict(card_vs_plain32=flips(card, plain32),
+                      card_vs_float64=flips(card, f64),
+                      plain32_vs_float64=flips(plain32, f64))
+    print("  inlier-mask flips (frames): "
+          + "; ".join(f"{k} {v}" for k, v in mask_flips.items()), flush=True)
     return dict(cpu_s=cpu_s, sigma_final=float(sigma[-1]),
-                sigma_per_frame=sigma.tolist(), **agree)
+                sigma_per_frame=sigma.tolist(), mask_flips=mask_flips,
+                **agree)
 
 
 def replay_margin(cfg: SlamConfig, seeds: list, T: int = T_FRAMES,
@@ -1433,6 +1569,8 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     check(failures, 1 <= launches["init"] <= T,
           f"init launched on init_step and on add frames only "
           f"({launches['init']})")
+    check(failures, launches["init_augment"] == launches["init"],
+          "each addition launches (A) and (B) once")
     check(failures, bool(torch.isfinite(state.x).all())
           and bool(torch.isfinite(state.P).all()), "final x and P finite")
     matched = recs.total_matches.astype(np.int64)
@@ -1621,6 +1759,8 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     check(failures, 1 <= launches["init"] <= T,
           f"init launched on init and on add frames only "
           f"({launches['init']})")
+    check(failures, launches["init_augment"] == launches["init"],
+          "each addition launches (A) and (B) once")
     check(failures, bool(torch.isfinite(engine.state.x).all())
           and bool(torch.isfinite(engine.state.P).all()),
           "final x and P finite")
@@ -1797,6 +1937,8 @@ def check_parity_launches(failures, launches: dict, steps: int,
     check(failures, launches["predict"] == S, f"predict launches {S}")
     check(failures, launches["init"] >= 1,
           f"init launched on add frames ({launches['init']})")
+    check(failures, launches["init_augment"] == launches["init"],
+          "each addition launches (A) and (B) once")
     if frames is not None:
         check(failures, launches["star"] == frames
               and launches["brief"] == frames,
@@ -2149,7 +2291,7 @@ def main(argv: list) -> int:
                   path_update_checks=path["path_update"],
                   path={k: path[k] for k in (
                       "fps", "fps_second", "elapsed_s", "syncs", "sync_sites",
-                      "phase_ms", "measure_launches_per_call",
+                      "phase_ms", "measure_launches_per_call", "add_call",
                       "record_s",
                       "healthy", "mean_matched", "mean_inliers",
                       "replay_vs_recording", "launches")},

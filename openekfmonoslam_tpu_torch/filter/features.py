@@ -6,8 +6,9 @@ detected pixel: undistort, back-project to a unit-depth camera ray, rotate
 to world, convert to (theta, phi) with rho = InitInvDepthRho (:293-350);
 the covariance grows by a 6-dim block built from J1 = d(feature)/d(r, q)
 and J2 = d(feature)/d(u, v, rho) with noise diag(pixelErrorX^2,
-pixelErrorY^2, rhoSD^2) (:109-289).  The per-candidate chain and its
-Jacobians are one kernel on the GPU (ops/init_kernel.py).
+pixelErrorY^2, rhoSD^2) (:109-289).  On the GPU the per-candidate chain
+and the covariance growth are two kernels (ops/init_kernel.py
+add_covariance); the x, flag and descriptor scatters stay here.
 
 Where the JAX package branches with ``lax.cond`` (add only if a candidate
 landed, free colliding slots only if one collides), the port always
@@ -24,8 +25,7 @@ from openekfmonoslam_tpu_torch.core import camera as cam_mod
 from openekfmonoslam_tpu_torch.core import quaternion as quat
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.filter import mapman
-from openekfmonoslam_tpu_torch.filter.state import (
-    CAM_DIM, FEAT_DIM, SlamState, select_state)
+from openekfmonoslam_tpu_torch.filter.state import SlamState, select_state
 from openekfmonoslam_tpu_torch.ops import init_kernel
 
 
@@ -106,56 +106,16 @@ def _scatter_rows(base: torch.Tensor, idx: torch.Tensor,
 def _add_features_impl(state: SlamState, camera: Camera, config: SlamConfig,
                        cand_uv: torch.Tensor, cand_desc: torch.Tensor,
                        slots: torch.Tensor, ok: torch.Tensor) -> SlamState:
-    P = state.P
-    dtype, dev = P.dtype, P.device
+    dtype, dev = state.P.dtype, state.P.device
     C = cand_uv.shape[0]
-    N = P.shape[0]
     ekf, camcal = config.ekf, config.camera
     cam7 = state.x[:7]
-
-    feats, J1, J2 = init_kernel.init_chain(camera, cam7, cand_uv,
-                                           float(ekf.init_inv_depth_rho))
     r_add = (camcal.pixel_error_x ** 2, camcal.pixel_error_y ** 2,
              ekf.inverse_depth_rho_sd ** 2)
-
-    # each new feature's J1 only reads the camera pose strip P[:7, :],
-    # which no addition modifies; two new features c, d cross-correlate
-    # by J1_c P77 J1_d^T
-    p7 = P[:7, :]
-    P77 = p7[:, :7]
-    rows = torch.einsum("cij,jn->cin", J1, p7)               # (C, 6, N)
-    B = torch.einsum("cij,jk->cik", J1, P77)                 # (C, 6, 7)
-    cross = torch.einsum("cik,djk->cidj", B, J1)             # (C, 6, C, 6)
-    J2r = torch.stack([J2[..., k] * r_add[k] for k in range(3)], dim=-1)
-    noise = torch.einsum("cik,cjk->cij", J2r, J2)            # (C, 6, 6)
-
-    # invalid candidates point at the extra column N, which is dropped
-    dim_idx = (CAM_DIM + FEAT_DIM * slots.to(torch.long)[:, None]
-               + torch.arange(FEAT_DIM, device=dev)[None, :])  # (C, 6)
-    dim_idx = torch.where(ok[:, None], dim_idx, torch.full_like(dim_idx, N))
-    cross = cross * ok.to(dtype)[None, None, :, None]
-    rows = torch.cat([rows, torch.zeros((C, FEAT_DIM, 1), dtype=dtype,
-                                        device=dev)], dim=-1)
-    rows[:, :, dim_idx.reshape(-1)] = cross.reshape(C, FEAT_DIM,
-                                                   C * FEAT_DIM)
-    diag = torch.einsum("cik,cjk->cij", B, J1) + noise       # (C, 6, 6)
-    rows[torch.arange(C, device=dev)[:, None, None],
-         torch.arange(FEAT_DIM, device=dev)[None, :, None],
-         dim_idx[:, None, :]] = diag
-    rows = rows[..., :N]
-
-    # each state dim looks up which candidate row writes it (K = none)
-    flat_idx = dim_idx.reshape(-1)
-    K = C * FEAT_DIM
-    idx_map = torch.full((N + 1,), K, dtype=torch.long, device=dev)
-    idx_map[flat_idx] = torch.arange(K, device=dev)
-    idx_map = idx_map[:N]
-    wrote = idx_map < K
-    A_ext = torch.cat([rows.reshape(K, N),
-                       torch.zeros((1, N), dtype=dtype, device=dev)], dim=0)
-    G = A_ext[idx_map]                                       # (N, N)
-    Pn = torch.where(wrote[:, None], G, P)
-    P_new = torch.where(wrote[None, :], G.T, Pn)
+    feats, P_new = init_kernel.add_covariance(
+        camera, state.P, cam7, cand_uv, slots, ok,
+        float(ekf.init_inv_depth_rho), r_add)
+    flat_idx = init_kernel.new_dims(slots, ok, state.P.shape[0]).reshape(-1)
 
     x_new = _scatter_rows(state.x, flat_idx, feats.reshape(-1).to(dtype))
     zeros_c = torch.zeros((C,), dtype=torch.int32, device=dev)

@@ -1,14 +1,16 @@
 """The SPD solve X = S^-1 B by blocked Cholesky (port of ops/cholsolve.py).
 
-``chol_solve_cuda`` launches the hand-written CUDA kernel
-(``csrc/cholsolve.cu``), which replaces the TPU kernel
-``_cholsolve_kernel`` / ``chol_solve_pallas``
-(openekfmonoslam_tpu/ops/cholsolve.py:102,151).  ``chol_solve_plain`` is
-its plain PyTorch version, the same right-looking blocked algorithm with
-BS = 64: factor and invert each diagonal block, form the panel below it,
-update the trailing matrix, then the two block triangular solves through
-the diagonal-block inverses.  Any M and K: the last block is ragged, not
-padded.
+``chol_solve_cuda`` launches the hand-written CUDA kernels
+(``csrc/cholsolve.cu`` over ``csrc/spd_core.cuh``), which replace the TPU
+kernel ``_cholsolve_kernel`` / ``chol_solve_pallas``
+(openekfmonoslam_tpu/ops/cholsolve.py:102,151): a one-CTA blocked
+Cholesky with the TPU kernel's pivot clamp, then both triangular solves
+in column slabs across CTAs, two launches.  ``chol_solve_plain`` is its
+plain PyTorch version, the TPU kernel's right-looking blocked algorithm
+with BS = 64: factor and invert each diagonal block, form the panel below
+it, update the trailing matrix, then the two block triangular solves
+through the diagonal-block inverses.  Any M and K: the last block is
+ragged, not padded.
 
 ``solve_spd`` mirrors the JAX wrapper (cholsolve.py:186-207): a CUDA
 float32 S launches the kernel, anything else is a Cholesky factorization
@@ -24,10 +26,14 @@ from __future__ import annotations
 
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import cuda_lib, spd_core
 
 BS = 64                  # Cholesky block size (the TPU kernel's)
 PIVOT_FLOOR = 1e-30      # pivots are clamped here before the rsqrt (:69)
+# csrc/cholsolve.cu: the columns of B a solve CTA takes, and the shared
+# memory its slab may use before it moves to device memory
+SLAB = 8
+SOLVE_SMEM_MAX = 96 * 1024
 
 LAUNCHES = cuda_lib.LaunchCounter("cholsolve")
 
@@ -87,9 +93,12 @@ def chol_solve_plain(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return X
 
 
-def chol_solve_cuda(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """X = S^-1 B from one cooperative launch of the CUDA kernel; S (M, M)
-    and B (M, K) float32 on the card, any M, K >= 1."""
+def chol_solve_cuda(S: torch.Tensor, B: torch.Tensor,
+                    with_factor: bool = False):
+    """X = S^-1 B from the two CUDA launches (the one-CTA factor, then the
+    column-slab solve); S (M, M) and B (M, K) float32 on the card, any
+    M, K >= 1.  With ``with_factor``, (X, the ``spd_core.Factor`` the
+    solve used) for checking."""
     S = S.contiguous()
     B = B.contiguous()
     cuda_lib.check_cuda_inputs("cholsolve", {"S": S, "B": B})
@@ -99,17 +108,27 @@ def chol_solve_cuda(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cholsolve: bad shapes S {tuple(S.shape)}, "
                          f"B {tuple(B.shape)}")
     K = B.shape[1]
-    nb = -(-M // BS)
     X = torch.empty_like(B)
-    # the working copy of S (its lower triangle becomes L) and the
-    # diagonal-block inverses
-    scratch = torch.empty((M * M + nb * BS * BS,), dtype=torch.float32,
+    # L, the diagonal blocks' inverses, then the solve's slabs when they do
+    # not fit its shared memory
+    Mp = -(-M // spd_core.NB) * spd_core.NB
+    sizes = [spd_core.tri(M), Mp * spd_core.NB,
+             -(-K // SLAB) * Mp * SLAB if Mp * SLAB * 4 > SOLVE_SMEM_MAX
+             else 0]
+    scratch = torch.empty((sum(sizes),), dtype=torch.float32,
                           device=S.device)
-    base = scratch.data_ptr()
+    ptrs, base = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(base)
+        base += 4 * n
+    ints = torch.empty((M + 2,), dtype=torch.int32, device=S.device)
     cuda_lib.library().call(
-        "ekf_cholsolve", S.data_ptr(), B.data_ptr(), X.data_ptr(), base,
-        base + 4 * M * M, M, K, cuda_lib.stream_of(S))
+        "ekf_cholsolve", S.data_ptr(), B.data_ptr(), X.data_ptr(), *ptrs,
+        ints.data_ptr(), ints.data_ptr() + 4 * M, M, K,
+        cuda_lib.stream_of(S))
     LAUNCHES.hit()
+    if with_factor:
+        return X, spd_core.Factor(scratch[:sizes[0]], ints[:M], ints[M:])
     return X
 
 

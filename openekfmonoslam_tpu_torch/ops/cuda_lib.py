@@ -74,13 +74,15 @@ _SIGNATURES = {
     "ekf_predict": [_P, _P, _P, _P, _I, _F, _F, _F, _P],
     "ekf_measure": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                     ctypes.POINTER(CamParams), _P],
-    "ekf_init": [_P, _P, _P, _P, _P, _I, _F, ctypes.POINTER(CamParams), _P],
+    "ekf_init": [_P] * 7 + [_I, _I, _F, _F, _F, _F,
+                            ctypes.POINTER(CamParams), _P],
+    "ekf_init_augment": [_P] * 5 + [_I, _I, _P],
     "ekf_update": [_P] * 16 + [_I, _I, _F, _P],
     "ekf_star": [_P, ctypes.POINTER(StarParams), _I, _P, _P, _P],
     "ekf_brief": [_P, _I, _I, _P, _P],
     "ekf_brief_generic": [_P, _I, _I, _I, _P, _I, _P, _P],
     "ekf_sinv": [_P] * 11 + [_I, _P],
-    "ekf_cholsolve": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "ekf_cholsolve": [_P] * 8 + [_I, _I, _P],
     "ekf_noop": [_P],
 }
 

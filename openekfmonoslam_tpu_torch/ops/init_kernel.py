@@ -1,20 +1,31 @@
-"""The feature-initialization chain as one CUDA kernel (``csrc/init.cu``).
+"""The add path's new-landmark chain and covariance augmentation as two
+CUDA launches (``csrc/init.cu``).
 
 Replaces the TPU kernel ``_init_kernel`` / ``init_chain_pallas``
-(openekfmonoslam_tpu/ops/init_kernel.py:48,138): per candidate pixel, the
-inverse-depth feature (undistort -> back-project -> rotate -> bearing
-angles) with its hand-derived Jacobians J1 = d(feat)/d(r, q) and
-J2 = d(feat)/d(u, v, rho), in the padded (C, 6), (C, 6, 7), (C, 6, 3)
-shapes.  The bearing atan2 runs inside the kernel (the TPU caller took it
-outside: Mosaic has no atan2).
+(openekfmonoslam_tpu/ops/init_kernel.py:48,138) and the covariance work
+that follows it in the JAX package as XLA einsums and scatters
+(openekfmonoslam_tpu/filter/features.py:177-224):
 
-Bound on the H100: launch latency.  At C = 96 the kernel reads 0.8 KB,
-writes ~25 KB and does ~20 kflop.  Design: one thread per candidate.
+  (A) ``init_chain``: per candidate pixel, the inverse-depth feature
+      (undistort -> back-project -> rotate -> bearing angles) with its
+      hand-derived Jacobians J1 = d(feat)/d(r, q) and J2 = d(feat)/d(u, v,
+      rho), in the padded (C, 6), (C, 6, 7), (C, 6, 3) shapes, and, for the
+      add path, the compact operands of (B) from P's camera block: J1's
+      rows 3:5 at columns 3:7, B = J1 P77 and the candidate's own block
+      B J1^T + J2 diag(r_add) J2^T.  The bearing atan2 runs inside the
+      kernel (the TPU caller took it outside: Mosaic has no atan2).
+  (B) ``init_augment``: P_new, out of place, in one pass over P, with each
+      valid candidate's rows and columns placed at its slot's dims
+      (csrc/init.cu gives the element rule and the sum order).
 
-``init_chain`` is the wrapper: a CPU tensor runs ``init_plain`` (the
-vmapped forward-mode Jacobian of filter/features.py init_feature, the
-chain the JAX package runs off the TPU), a CUDA tensor launches the kernel
-or raises.
+Bound on the H100: bytes, 2 N^2 4 B for (B); (A) is launch bound.
+
+``add_covariance`` is the add path's wrapper: a CPU tensor runs
+``add_covariance_plain`` (the JAX package's einsums and index-map
+placement, with ``init_plain``), a CUDA float32 tensor launches (A) and
+(B), or raises.  ``init_chain`` is the chain alone, the counterpart of the
+TPU kernel: ``init_plain`` (the vmapped forward-mode Jacobian of
+filter/features.py init_feature) on the CPU, (A) on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +37,15 @@ import torch
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.ops import cuda_lib
 
+# filter/state.py: the camera's 13 dims come first, then 6 a slot
+CAM_DIM, FEAT_DIM = 13, 6
+# csrc/init.cu: floats of a candidate's compact operands, and the largest
+# N whose dim map fits (B)'s shared memory
+OPS = 88
+MAX_N = 12288
+
 LAUNCHES = cuda_lib.LaunchCounter("init")
+AUGMENT_LAUNCHES = cuda_lib.LaunchCounter("init_augment")
 
 
 def init_plain(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
@@ -50,26 +69,45 @@ def init_plain(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
     return feats, J1, J2
 
 
-def init_cuda(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
-              rho0: float):
-    """The same three arrays from one launch of the CUDA kernel."""
+def _chain_cuda(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
+                rho0: float, P: torch.Tensor | None = None,
+                r_add: tuple = (0.0, 0.0, 0.0)):
+    """(feats, J1, J2, ops) from one launch of (A); ops (C, OPS) only with
+    P given (else None)."""
     cam7 = cam7.contiguous()
     cand_uv = cand_uv.contiguous()
-    cuda_lib.check_cuda_inputs("init", {"cam7": cam7, "cand_uv": cand_uv})
+    tensors = {"cam7": cam7, "cand_uv": cand_uv}
+    if P is not None:
+        P = P.contiguous()
+        tensors["P"] = P
+    cuda_lib.check_cuda_inputs("init", tensors)
     C = cand_uv.shape[0]
-    if cam7.shape != (7,) or cand_uv.shape != (C, 2) or C < 1:
+    N = P.shape[0] if P is not None else 0
+    if (cam7.shape != (7,) or cand_uv.shape != (C, 2) or C < 1
+            or (P is not None and (P.shape != (N, N) or N < 7))):
         raise ValueError("init: bad shapes")
     dev = cand_uv.device
     feats = torch.empty((C, 6), dtype=torch.float32, device=dev)
     J1 = torch.empty((C, 6, 7), dtype=torch.float32, device=dev)
     J2 = torch.empty((C, 6, 3), dtype=torch.float32, device=dev)
+    ops = (torch.empty((C, OPS), dtype=torch.float32, device=dev)
+           if P is not None else None)
     cam = cuda_lib.CamParams.from_camera(camera)
     cuda_lib.library().call(
-        "ekf_init", cam7.data_ptr(), cand_uv.data_ptr(), feats.data_ptr(),
-        J1.data_ptr(), J2.data_ptr(), C, float(rho0), ctypes.byref(cam),
+        "ekf_init", cam7.data_ptr(), cand_uv.data_ptr(),
+        P.data_ptr() if P is not None else None, feats.data_ptr(),
+        J1.data_ptr(), J2.data_ptr(),
+        ops.data_ptr() if ops is not None else None, C, N, float(rho0),
+        *(float(r) for r in r_add), ctypes.byref(cam),
         cuda_lib.stream_of(cand_uv))
     LAUNCHES.hit()
-    return feats, J1, J2
+    return feats, J1, J2, ops
+
+
+def init_cuda(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
+              rho0: float):
+    """The chain's three arrays from one launch of (A)."""
+    return _chain_cuda(camera, cam7, cand_uv, rho0)[:3]
 
 
 def init_chain(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
@@ -78,3 +116,106 @@ def init_chain(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
     if cand_uv.device.type == "cpu":
         return init_plain(camera, cam7, cand_uv, rho0)
     return init_cuda(camera, cam7, cand_uv, rho0)
+
+
+def new_dims(slots: torch.Tensor, ok: torch.Tensor, N: int) -> torch.Tensor:
+    """(C, 6) state dims of each candidate's slot; N (the dropped extra
+    column) for an invalid candidate."""
+    dim_idx = (CAM_DIM + FEAT_DIM * slots.to(torch.long)[:, None]
+               + torch.arange(FEAT_DIM, device=slots.device)[None, :])
+    return torch.where(ok[:, None], dim_idx, torch.full_like(dim_idx, N))
+
+
+def add_covariance_plain(camera: Camera, P: torch.Tensor, cam7: torch.Tensor,
+                         cand_uv: torch.Tensor, slots: torch.Tensor,
+                         ok: torch.Tensor, rho0: float, r_add: tuple):
+    """(feats (C, 6), P_new (N, N)): the new features and P grown by their
+    rows and columns at the dims of their slots."""
+    feats, J1, J2 = init_chain(camera, cam7, cand_uv, rho0)
+    return feats, augment_plain(P, J1, J2, slots, ok, r_add)
+
+
+def augment_plain(P: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
+                  slots: torch.Tensor, ok: torch.Tensor, r_add: tuple
+                  ) -> torch.Tensor:
+    """P grown by the candidates' rows and columns from the chain's J1 and
+    J2 (the JAX package's einsums, then its index-map placement): the
+    plain version of (B) with the products of (A)."""
+    dtype, dev = P.dtype, P.device
+    C = J1.shape[0]
+    N = P.shape[0]
+    # each new feature's J1 only reads the camera pose strip P[:7, :],
+    # which no addition modifies; two new features c, d cross-correlate
+    # by J1_c P77 J1_d^T
+    p7 = P[:7, :]
+    P77 = p7[:, :7]
+    rows = torch.einsum("cij,jn->cin", J1, p7)               # (C, 6, N)
+    B = torch.einsum("cij,jk->cik", J1, P77)                 # (C, 6, 7)
+    cross = torch.einsum("cik,djk->cidj", B, J1)             # (C, 6, C, 6)
+    J2r = torch.stack([J2[..., k] * r_add[k] for k in range(3)], dim=-1)
+    noise = torch.einsum("cik,cjk->cij", J2r, J2)            # (C, 6, 6)
+
+    # invalid candidates point at the extra column N, which is dropped
+    dim_idx = new_dims(slots, ok, N)
+    cross = cross * ok.to(dtype)[None, None, :, None]
+    rows = torch.cat([rows, torch.zeros((C, FEAT_DIM, 1), dtype=dtype,
+                                        device=dev)], dim=-1)
+    rows[:, :, dim_idx.reshape(-1)] = cross.reshape(C, FEAT_DIM,
+                                                   C * FEAT_DIM)
+    diag = torch.einsum("cik,cjk->cij", B, J1) + noise       # (C, 6, 6)
+    rows[torch.arange(C, device=dev)[:, None, None],
+         torch.arange(FEAT_DIM, device=dev)[None, :, None],
+         dim_idx[:, None, :]] = diag
+    rows = rows[..., :N]
+
+    # each state dim looks up which candidate row writes it (K = none)
+    flat_idx = dim_idx.reshape(-1)
+    K = C * FEAT_DIM
+    idx_map = torch.full((N + 1,), K, dtype=torch.long, device=dev)
+    idx_map[flat_idx] = torch.arange(K, device=dev)
+    idx_map = idx_map[:N]
+    wrote = idx_map < K
+    A_ext = torch.cat([rows.reshape(K, N),
+                       torch.zeros((1, N), dtype=dtype, device=dev)], dim=0)
+    G = A_ext[idx_map]                                       # (N, N)
+    Pn = torch.where(wrote[:, None], G, P)
+    return torch.where(wrote[None, :], G.T, Pn)
+
+
+def augment_cuda(P: torch.Tensor, ops: torch.Tensor, slots: torch.Tensor,
+                 ok: torch.Tensor) -> torch.Tensor:
+    """P_new from one launch of (B): P (N, N) float32, ops (C, OPS) from
+    (A), slots (C,) int32, ok (C,) bool."""
+    P, ops, slots, ok = (t.contiguous() for t in (P, ops, slots, ok))
+    cuda_lib.check_cuda_inputs("init_augment", {
+        "P": P, "ops": ops, "slots": slots, "ok": ok})
+    N, C = P.shape[0], slots.shape[0]
+    if (P.shape != (N, N) or ops.shape != (C, OPS) or ok.shape != (C,)
+            or slots.dtype != torch.int32 or ok.dtype != torch.bool
+            or C < 1 or not CAM_DIM <= N <= MAX_N):
+        raise ValueError("init_augment: bad shapes or types")
+    P_new = torch.empty_like(P)
+    cuda_lib.library().call(
+        "ekf_init_augment", P.data_ptr(), ops.data_ptr(), slots.data_ptr(),
+        ok.data_ptr(), P_new.data_ptr(), N, C, cuda_lib.stream_of(P))
+    AUGMENT_LAUNCHES.hit()
+    return P_new
+
+
+def add_covariance_cuda(camera: Camera, P: torch.Tensor, cam7: torch.Tensor,
+                        cand_uv: torch.Tensor, slots: torch.Tensor,
+                        ok: torch.Tensor, rho0: float, r_add: tuple):
+    """(feats, P_new) from the two launches (A) and (B)."""
+    feats, _, _, ops = _chain_cuda(camera, cam7, cand_uv, rho0, P, r_add)
+    return feats, augment_cuda(P, ops, slots, ok)
+
+
+def add_covariance(camera: Camera, P: torch.Tensor, cam7: torch.Tensor,
+                   cand_uv: torch.Tensor, slots: torch.Tensor,
+                   ok: torch.Tensor, rho0: float, r_add: tuple):
+    """(feats, P_new): the plain version on the CPU, the kernels on CUDA."""
+    if P.device.type == "cpu":
+        return add_covariance_plain(camera, P, cam7, cand_uv, slots, ok,
+                                    rho0, r_add)
+    return add_covariance_cuda(camera, P, cam7, cand_uv, slots, ok, rho0,
+                               r_add)

@@ -5,9 +5,13 @@ predict kernel's scalar fallback (N % 4 != 0, an unaligned base), odd
 frame sizes and other STAR and BRIEF settings (both STAR routes, both
 BRIEF variants), the S-inverse from M = 1 to
 3100 and cond 1e2 to 1e6, both measure variants at F = 1 to 513 with
-their masks, and the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
-at cond 1e2 to 1e4.  The filter kernels are held against float64;
-STAR and BRIEF must equal their float32 plain versions bit for bit.
+their masks, the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
+at cond 1e2 to 1e4 (and its pivot clamp against the plain version), the
+init chain and the add path's covariance augmentation at N = 128 to 1024
+and C = 1 to 96 with invalid, shuffled and duplicate slots, and the
+factor of the update bit for bit against the solve's.  The filter kernels
+are held against float64; STAR and BRIEF must equal their float32 plain
+versions bit for bit.
 ``chip_smoke.py`` checks the main path's shapes.
 
 These tests need a CUDA device and skip without one.  This module imports
@@ -156,9 +160,9 @@ def _solve_rel_err(X, S, B):
     return _err(X, want) / float(want.abs().max())
 
 
-@pytest.mark.parametrize("M,K", [(1, 1), (7, 3), (48, 200), (64, 128),
-                                 (65, 1), (192, 640), (336, 1024),
-                                 (640, 1000)])
+@pytest.mark.parametrize("M,K", [(1, 1), (7, 3), (31, 7), (33, 650),
+                                 (48, 200), (64, 128), (65, 1), (192, 640),
+                                 (200, 640), (336, 1024), (640, 1000)])
 @pytest.mark.parametrize("cond", [1e2, 1e3, 1e4])
 def test_cholsolve_kernel(dev, M, K, cond):
     """The spd_cond matrices within 1e-6 cond relative of the float64
@@ -174,6 +178,52 @@ def test_cholsolve_kernel(dev, M, K, cond):
     assert _solve_rel_err(X, S, B) <= 1e-6 * cond
     S2 = _f32(spd_plus(rng, M), dev)
     assert _solve_rel_err(cholsolve.chol_solve_cuda(S2, B), S2, B) <= 1e-4
+
+
+def test_cholsolve_kernel_clamps_pivots_as_the_plain_version(dev):
+    """A pivot below 1e-30 is clamped to it under the square root, as in
+    chol_solve_plain (and the TPU kernel): 2x2 blocks [[1, 2], [2, 1]]
+    leave pivots of -3, and a diagonal 1e-32 one below the floor.  The
+    solve stays finite and equal to the plain version's, and the factor
+    counts the ten non-positive pivots.  Relative 1e-4: the rows behind
+    the clamped pivots hold values near 1e-31 to 1e-34, summed from
+    products near float32's underflow, where the two sum orders part by
+    about 1e-5."""
+    M = 40
+    S = 2.0 * np.eye(M, dtype=np.float32)
+    for b in range(0, 20, 2):
+        S[b:b + 2, b:b + 2] = [[1.0, 2.0], [2.0, 1.0]]
+    S[25, 25] = 1e-32
+    B = np.random.default_rng(3).normal(size=(M, 5)).astype(np.float32)
+    X, factor = cholsolve.chol_solve_cuda(_f32(S, dev), _f32(B, dev),
+                                          with_factor=True)
+    want = cholsolve.chol_solve_plain(torch.tensor(S), torch.tensor(B))
+    got = X.cpu()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=0)
+    assert int(factor.meta[0]) == M and int(factor.meta[1]) == 10
+
+
+@pytest.mark.parametrize("F,N", [(96, 640), (168, 1024)])
+def test_update_factor_bit_identical_to_cholsolve_factor(dev, F, N):
+    """The pivot clamp is a compile-time option of the SPD core that leaves
+    the update's and the S-inverse's arithmetic as it was: on a dense SPD S
+    with every slot used and pixel_error 0, the fused update's factor (no
+    clamp) and the solve's (clamp) are the same bits, with L in shared
+    memory (2F = 192) and in device memory (2F = 336)."""
+    rng = np.random.default_rng(F)
+    M = 2 * F
+    S = _f32(spd_cond(M, 1e3), dev)
+    P = _f32(_spd(rng, N), dev)
+    x = _f32(rng.standard_normal(N) * 0.1, dev)
+    HP = _f32(rng.standard_normal((M, N)), dev)
+    uv = _f32(rng.uniform(0, 600, (F, 2)), dev)
+    use = torch.ones((F,), dtype=torch.bool, device=dev)
+    _, _, fu = update_kernel.joint_update_cuda(P, x, HP, S, uv, uv, use, 0.0)
+    _, fc = cholsolve.chol_solve_cuda(S, HP, with_factor=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fu.meta, fc.meta) and torch.equal(fu.idx, fc.idx)
+    assert torch.equal(fu.L_packed, fc.L_packed)
 
 
 def test_solve_spd_routes(dev):
@@ -243,6 +293,107 @@ def test_init_kernel(dev, C):
     ref = init_kernel.init_plain(CAM, cam7.double(), uv.double(), 1.0)
     for a, b, tol in zip(got, ref, (1e-5, 2e-2, 1e-4)):
         assert a.shape == b.shape and _err(a, b) <= tol
+
+
+R_ADD = (CFG.camera.pixel_error_x ** 2, CFG.camera.pixel_error_y ** 2,
+         CFG.ekf.inverse_depth_rho_sd ** 2)
+RHO0 = CFG.ekf.init_inv_depth_rho
+
+
+def _add_problem(rng, N, C):
+    """P (N, N) SPD, a camera pose, C candidate pixels, about two thirds of
+    them valid (at most the F = (N - 13) // 6 slots) at shuffled slots,
+    the rest invalid at slot F."""
+    F = (N - 13) // 6
+    q = rng.standard_normal(4)
+    cam7 = np.concatenate([rng.normal(0, 0.1, 3), q / np.linalg.norm(q)])
+    uv = rng.uniform(20, 600, (C, 2))
+    n_valid = min(F, max(1, 2 * C // 3))
+    slots = np.full(C, F, np.int32)
+    ok = np.zeros(C, bool)
+    where = rng.choice(C, n_valid, replace=False)
+    slots[where] = rng.choice(F, n_valid, replace=False)
+    ok[where] = True
+    return _spd(rng, N), cam7, uv, slots, ok
+
+
+def _check_add_covariance(dev, P, cam7, uv, slots, ok):
+    """(A) + (B) against the plain version in float64 on the CPU (where a
+    dim that two valid candidates name goes to the higher one, as in the
+    kernel): feats 1e-5, P_new 1e-5 relative to its largest entry (a new
+    entry is a sum of four products, and a ray near the vertical gives J1
+    entries in the tens), the elements of no new dim equal."""
+    P32, c7, uv32 = (np.asarray(a, np.float32) for a in (P, cam7, uv))
+    init_kernel.LAUNCHES.reset()
+    init_kernel.AUGMENT_LAUNCHES.reset()
+    feats, P_new = init_kernel.add_covariance(
+        CAM, _f32(P32, dev), _f32(c7, dev), _f32(uv32, dev),
+        torch.tensor(slots, device=dev), torch.tensor(ok, device=dev), RHO0,
+        R_ADD)
+    torch.cuda.synchronize()
+    assert init_kernel.LAUNCHES.count == 1
+    assert init_kernel.AUGMENT_LAUNCHES.count == 1
+    f64, P64 = init_kernel.add_covariance_plain(
+        CAM, torch.tensor(P32).double(), torch.tensor(c7).double(),
+        torch.tensor(uv32).double(), torch.tensor(slots), torch.tensor(ok),
+        RHO0, R_ADD)
+    assert _err(feats.cpu(), f64) <= 1e-5
+    assert _err(P_new.cpu(), P64) <= 1e-5 * max(1.0, float(P64.abs().max()))
+    N = P32.shape[0]
+    new = torch.zeros((N + 1,), dtype=torch.bool)
+    new[init_kernel.new_dims(torch.tensor(slots), torch.tensor(ok),
+                             N).reshape(-1)] = True
+    old = ~new[:N]
+    assert torch.equal(P_new.cpu()[old][:, old], torch.tensor(P32)[old][:, old])
+
+
+@pytest.mark.parametrize("N", [128, 133, 640, 1024])
+@pytest.mark.parametrize("C", [1, 7, 96])
+def test_add_covariance_kernels(dev, N, C):
+    """N = 133 (not a multiple of 4) takes the augmentation's scalar
+    path."""
+    _check_add_covariance(dev, *_add_problem(np.random.default_rng(N + C),
+                                             N, C))
+
+
+def test_add_covariance_kernels_duplicate_slots(dev):
+    """Two valid candidates naming one slot: the higher one's rows land."""
+    P, cam7, uv, slots, ok = _add_problem(np.random.default_rng(9), 640, 7)
+    valid = np.flatnonzero(ok)
+    slots[valid[3]] = slots[valid[0]]
+    _check_add_covariance(dev, P, cam7, uv, slots, ok)
+
+
+def test_add_features_launches_the_two_kernels(dev):
+    """_add_features_impl on a CUDA float32 state grows P by launches (A)
+    and (B) alone, and agrees with the float64 CPU path."""
+    from openekfmonoslam_tpu_torch.engine.step import SlamRuntime
+    from openekfmonoslam_tpu_torch.filter import features as feat_mod
+
+    rng = np.random.default_rng(4)
+    C = CFG.max_features
+    uv = rng.uniform(20, 600, (C, 2))
+    slots = rng.permutation(C).astype(np.int32)
+    ok = rng.random(C) < 0.7
+    out = {}
+    for name, runtime in (("card", SlamRuntime(CFG)),
+                          ("cpu", SlamRuntime(SlamConfig(dtype="float64"),
+                                              device="cpu"))):
+        d, dt = runtime.device, runtime.dtype
+        state = runtime.make_initial_state()
+        init_kernel.LAUNCHES.reset()
+        init_kernel.AUGMENT_LAUNCHES.reset()
+        out[name] = feat_mod.add_features_at(
+            state, runtime.camera, runtime.config,
+            torch.tensor(uv, dtype=dt, device=d),
+            torch.zeros((C, 8), dtype=torch.int32, device=d),
+            torch.tensor(slots, device=d), torch.tensor(ok, device=d))
+        if name == "card":
+            torch.cuda.synchronize()
+            assert init_kernel.LAUNCHES.count == 1
+            assert init_kernel.AUGMENT_LAUNCHES.count == 1
+    assert _err(out["card"].P.cpu(), out["cpu"].P) <= 1e-4
+    assert _err(out["card"].x.cpu(), out["cpu"].x) <= 1e-5
 
 
 def spd_cond(m, cond, seed=0):

@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA
                                  # device and the CUDA toolkit (nvcc)
     python3 chip_smoke.py --kernels-only    # phases 1 and 2 alone
+    python3 chip_smoke.py --profiles-only   # phases 1 and 8 alone
     python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
                                  # agreement at other scenes (phase 1 first)
 
@@ -84,6 +85,23 @@ Phases, each of which passes or raises (the script then exits non-zero):
               frame, at most 2 host syncs a frame, healthy tracking, 40
               steps under the profiler, and its live log replayed in
               float64 (1e-4 m, masks 95%).
+  8. profiles the other front-end profiles on the live entry points:
+              SlamConfig() (FAST + BRIEF-256, the default) over phase 5's
+              201 frames through run_sequence_on_device, with every launch
+              counter set to 0 just before and read just after (BRIEF once
+              a frame, STAR never, predict, measure, the fused update and
+              init as in phase 5), a second timed run, a run under sync
+              debug mode (at most 1 host sync a frame, at the read of
+              phase_mapman), 20 steps under torch.profiler with a range
+              around each PyTorch chain of the front end, the first
+              frame's score maps and descriptors against the same port
+              functions' plain float32 run on the CPU (bit for bit; float
+              descriptors to 1e-6), and the live log replayed in float64
+              (1e-4 m, masks 95%); then ORB/ORB, SIFT/SURF, SURF/SURF,
+              HARRIS/BRIEF and SHI_TOMASI/ORB, each with the config's
+              defaults, over the first 21 of those frames with the same
+              checks but the second run and the sync count (10 steps
+              under the profiler).
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
 (bit for bit) on a textured 640x480 frame and on an odd 483x645 one:
@@ -125,7 +143,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from openekfmonoslam_tpu_torch.config import DetectorConfig, SlamConfig
+from openekfmonoslam_tpu_torch.config import (DescriptorConfig,
+                                              DetectorConfig, SlamConfig)
 from openekfmonoslam_tpu_torch.core import camera as cam_mod
 from openekfmonoslam_tpu_torch.core import quaternion as quat
 from openekfmonoslam_tpu_torch.engine import checkpoint as ckpt_mod
@@ -149,7 +168,14 @@ from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            measure_kernel, predict_kernel,
                                            sinv, spd_core, star_kernel,
                                            update_kernel)
-from openekfmonoslam_tpu_torch.vision import brief, star
+from openekfmonoslam_tpu_torch.vision import brief
+from openekfmonoslam_tpu_torch.vision import dog as dog_mod
+from openekfmonoslam_tpu_torch.vision import fast as fast_mod
+from openekfmonoslam_tpu_torch.vision import floatdesc
+from openekfmonoslam_tpu_torch.vision import harris as harris_mod
+from openekfmonoslam_tpu_torch.vision import orb as orb_mod
+from openekfmonoslam_tpu_torch.vision import star
+from openekfmonoslam_tpu_torch.vision.frontend import Frontend
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -714,9 +740,9 @@ def check_star_brief(failures, tag: str, gray, frontend,
               f"{e_star[route]:.3e})")
     smoothed = brief.smooth(gray, frontend.config.descriptor.blur_sigma)
     bits = {}
-    cases = [(frontend.pattern.variant, frontend.pattern)]
+    cases = [(frontend.brief_pattern.variant, frontend.brief_pattern)]
     if both:
-        cases += [("generic", frontend.pattern),
+        cases += [("generic", frontend.brief_pattern),
                   ("generic", wide_pattern(frontend, gray.device))]
     for variant, pattern in cases:
         planes = brief_kernel.dense_planes_cuda(smoothed, pattern, variant)
@@ -907,7 +933,7 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
         blob_texture(rng, 483, 645), device=dev), frontend, both=True)
     check(failures, main["peaks"] >= 1000,
           f"the textured frame has {main['peaks']} STAR peaks (>= 1000)")
-    s_set, pattern = frontend.star, frontend.pattern
+    s_set, pattern = frontend.star, frontend.brief_pattern
     wide = wide_pattern(frontend, dev)
     ii, smoothed = main["ii"], main["smoothed"]
     planned = star_kernel.star_plan(s_set)[0]
@@ -2193,6 +2219,229 @@ def parity_engine(failures: list, T: int = T_PARITY_LIVE) -> dict:
 
 # ------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- phase 8
+
+# the other front-end profiles: (detector, descriptor) pairs, each with the
+# DetectorConfig / DescriptorConfig defaults, at full width, short depth
+PROFILE_PAIRS = (("ORB", "ORB"), ("SIFT", "SURF"), ("SURF", "SURF"),
+                 ("HARRIS", "BRIEF"), ("SHI_TOMASI", "ORB"))
+T_PROFILE = 21            # frames of each of them: init_step + 20 steps
+# steps under the profiler (its cost grows with the launches it traces,
+# 3000 a frame on SIFT): the default path's, and each other profile's
+DEFAULT_PROFILED = 20
+PROFILE_PROFILED = 10
+PROFILE_WARM = 6          # frames of a profile's warm-up run
+# the front ends' PyTorch chains, each a profiler range; a call nested in
+# another (pyramid FAST's fast_scores) counts in both
+PROFILE_CHAINS = {
+    "frontend.fast_scores": (fast_mod, "fast_scores"),
+    "frontend.pyramid_fast": (orb_mod, "pyramid_fast_scores"),
+    "frontend.dog": (dog_mod, "dog_scores"),
+    "frontend.doh": (dog_mod, "doh_scores"),
+    "frontend.harris": (harris_mod, "harris_scores"),
+    "frontend.shi_tomasi": (harris_mod, "shi_tomasi_scores"),
+    "frontend.nms": (fast_mod, "non_max_suppress"),
+    "frontend.smooth": (brief, "smooth"),
+    "frontend.moments": (orb_mod, "centroid_moment_maps"),
+    "frontend.steered": (orb_mod, "steered_extract"),
+    "frontend.surf64": (floatdesc, "surf64"),
+}
+# a float descriptor of the card against the CPU's, relative to the
+# vector's largest entry (float32 sums in each device's order)
+FLOAT_DESC_REL = 1e-6
+
+
+def profile_config(det: str, desc: str) -> SlamConfig:
+    return SlamConfig(detector=DetectorConfig(kind=det),
+                      descriptor=DescriptorConfig(kind=desc))
+
+
+def check_profile_frame(failures, tag: str, runtime: SlamRuntime,
+                        gray) -> dict:
+    """The front end on one frame on the card against the same port
+    functions' plain float32 run on the CPU: both score maps bit for bit,
+    and the descriptors of the CPU's keypoints (binary ones bit for bit,
+    float ones to FLOAT_DESC_REL)."""
+    fe = runtime.frontend
+    cpu_fe = Frontend(runtime.config, "cpu")
+    aux = fe.precompute(gray)
+    gray_cpu = gray.cpu()
+    aux_p = cpu_fe.precompute(gray_cpu)
+    for key in ("score_raw", "score_nms"):
+        same = torch.equal(aux[key].cpu(), aux_p[key])
+        check(failures, same,
+              f"{tag}: {key} identical to the CPU's plain float32 map "
+              f"(max |diff| {max_abs(aux[key].cpu(), aux_p[key]):.3e})")
+    h, w = gray.shape
+    m = fe.border
+    ys = torch.arange(h)[:, None]
+    xs = torch.arange(w)[None, :]
+    inside = (ys >= m) & (ys < h - m) & (xs >= m) & (xs < w - m)
+    kps = fast_mod.detect_keypoints(aux_p["score_nms"], inside,
+                                    runtime.config.max_keypoints)
+    yx = kps.yx[kps.valid]
+    desc = fe.describe(aux, yx.to(gray.device)).cpu()
+    desc_p = cpu_fe.describe(aux_p, yx)
+    if fe.is_binary:
+        err = sum(int(brief.popcount32(a ^ b).sum())
+                  for a, b in zip(desc, desc_p))
+        check(failures, err == 0 and desc.dtype == torch.int32,
+              f"{tag}: {len(yx)} {fe.desc_kind} descriptors bit-identical "
+              f"({err} bits differ)")
+    else:
+        scale = desc_p.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        err = float(((desc - desc_p).abs() / scale).max())
+        check(failures, err <= FLOAT_DESC_REL and desc.dtype == torch.float32,
+              f"{tag}: {len(yx)} {fe.desc_kind} float descriptors within "
+              f"{FLOAT_DESC_REL} relative ({err:.3e})")
+    return dict(keypoints=int(len(yx)), desc_err=err,
+                peaks=int((aux_p["score_nms"] > 0).sum()))
+
+
+def run_profile(failures, det: str, desc: str, frames: np.ndarray,
+                full: bool) -> dict:
+    """One profile on the card through run_sequence_on_device, with every
+    launch counter set to 0 just before and read just after; ``full`` adds
+    a second timed run and the host-sync count (the default path)."""
+    tag = f"{det}/{desc}"
+    t_start = time.perf_counter()
+    cfg = profile_config(det, desc)
+    runtime = SlamRuntime(cfg)
+    T = len(frames)
+    S = T - 1
+    print(f"  -- {tag}: {frames.shape[2]}x{frames.shape[1]}, {T} frames, "
+          f"F = {cfg.max_features}, N = {cfg.padded_state_dim}, "
+          f"{cfg.dtype}", flush=True)
+    scan_runner.run_sequence_on_device(
+        runtime, frames[:21 if full else PROFILE_WARM])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, recs = scan_runner.run_sequence_on_device(runtime, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    out = dict(fps=T / elapsed, elapsed_s=elapsed, launches=launches,
+               frames=T)
+    print(f"  {tag}: run_sequence_on_device {T / elapsed:.2f} frames/s "
+          f"({elapsed:.4f} s); launches {launches}", flush=True)
+    brief_n = T if desc == "BRIEF" else 0
+    check(failures, launches["brief"] == brief_n
+          and launches["brief_generic"] == 0,
+          f"{tag}: BRIEF kernel (s256) launched {launches['brief']} times "
+          f"({brief_n}: once a frame with BRIEF, never without)")
+    check(failures, launches["star"] == launches["star_direct"] == 0,
+          f"{tag}: no STAR launch")
+    check(failures, launches["predict"] == S
+          and launches["measure"] == 2 * S and launches["update"] == 2 * S
+          and launches["measure_quirks"] == launches["sinv"] == 0,
+          f"{tag}: predict {S}, measure {2 * S}, fused update {2 * S}")
+    check(failures, 1 <= launches["init"] == launches["init_augment"] <= T,
+          f"{tag}: each addition launches (A) and (B) once "
+          f"({launches['init']})")
+    check(failures, bool(torch.isfinite(state.x).all())
+          and bool(torch.isfinite(state.P).all()), f"{tag}: final x, P "
+          "finite")
+    matched = recs.total_matches.astype(np.int64)
+    inl = (recs.li_inliers + recs.hi_inliers).astype(np.int64)
+    healthy = float(np.mean(inl >= 0.5 * matched))
+    check(failures, healthy >= 0.9 and matched.mean() >= 20,
+          f"{tag}: tracking healthy on {healthy:.3f} of frames (>= 0.9), "
+          f"mean matched {matched.mean():.1f} (>= 20), mean inliers "
+          f"{inl.mean():.1f}, {int(recs.new_ok.sum())} features added")
+    out.update(healthy=healthy, mean_matched=float(matched.mean()),
+               mean_inliers=float(inl.mean()))
+
+    gpu_frames = runtime._tensor(frames)
+    st0 = runtime.init_step(runtime.make_initial_state(), gpu_frames[0])
+    torch.cuda.synchronize()
+    if full:
+        t0 = time.perf_counter()
+        scan_runner.run_sequence_on_device(runtime, frames)
+        torch.cuda.synchronize()
+        out["fps_again"] = T / (time.perf_counter() - t0)
+        sites, sync_s = count_syncs(
+            lambda: scan_runner.scan_frames(runtime, st0, gpu_frames[1:]))
+        syncs = sum(sites.values())
+        allowed = {source_line(step_mod, ".tolist()")}
+        print(f"  {tag}: again {out['fps_again']:.2f} frames/s; sync debug "
+              f"run {S / sync_s:.2f} steps/s, {syncs} host syncs "
+              f"({syncs / S:.3f} a frame): {dict(sites)}", flush=True)
+        check(failures, syncs / S <= LIVE_SYNCS_PER_FRAME
+              and set(sites) <= allowed,
+              f"{tag}: host syncs a frame {syncs / S:.3f} <= "
+              f"{LIVE_SYNCS_PER_FRAME}, all at {sorted(allowed)}")
+        out.update(syncs=syncs, syncs_per_frame=syncs / S,
+                   sync_sites=dict(sites), fps_sync_debug=S / sync_s)
+
+    # per-phase ms and the front end's chains under the profiler
+    n_prof = min(S, DEFAULT_PROFILED if full else PROFILE_PROFILED)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, chain_ranges(PROFILE_CHAINS):
+        scan_runner.scan_frames(runtime, st0, gpu_frames[1:1 + n_prof])
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, n_prof, LIVE_PHASE_PREFIX)
+    kern = kernel_device_us(averages, n_prof, LIVE_KERNEL_NAMES)
+    dev_ms = device_ms(averages, n_prof)
+    chains = {k: v for k, v in chain_device(
+        prof.events(), n_prof, tuple(PROFILE_CHAINS)).items()
+        if v["calls"] > 0}
+    print(f"  {tag} under the profiler ({n_prof} steps), ms a frame (host, "
+          "device of PyTorch's kernels): " + ", ".join(
+              f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+              for k, v in phase_ms.items()), flush=True)
+    print_device(dev_ms, kern)
+    print(f"  {tag} front-end chains, a frame: " + "; ".join(
+        f"{k} {v['device_us']:.2f} device us in {v['launches']:.2f} device "
+        f"launches ({v['calls']:.2f} calls, host {v['host_us']:.1f} us)"
+        for k, v in chains.items()), flush=True)
+    out.update(phase_ms=phase_ms, kernels_us=kern, device_ms=dev_ms,
+               chains=chains, profiled_steps=n_prof)
+
+    out["first_frame"] = check_profile_frame(failures, tag, runtime,
+                                             gpu_frames[0])
+
+    # the live log, replayed on the CPU in float64
+    log = replay.record_live_log(runtime, gpu_frames)
+    card = log["records"]
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(rt64, log)
+    cpu_s = time.perf_counter() - t0
+    agree = against_float64(card.x_cam, card.inliers, card.visible, recs64)
+    print(f"  {tag}: float64 CPU replay of the live log {cpu_s:.1f} s: "
+          f"deviation max {agree['dev_max']:.3e} (frame "
+          f"{agree['worst_frame']}), final {agree['dev_final']:.3e}; inlier "
+          f"masks identical on {agree['inliers_same']:.3f} of frames, "
+          f"visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
+          f"{tag}: live replay deviation <= {LIVE_REPLAY_TOL} on every "
+          f"frame (worst {agree['dev_max']:.3e})")
+    check(failures, agree["inliers_same"] >= LIVE_MASKS_SAME
+          and agree["visible_same"] >= LIVE_MASKS_SAME,
+          f"{tag}: live replay masks identical on >= {LIVE_MASKS_SAME} of "
+          "frames")
+    out["replay"] = dict(cpu_s=cpu_s, **agree)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  {tag}: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_profiles(failures: list) -> dict:
+    """SlamConfig() (FAST + BRIEF-256) over phase 5's frames, then every
+    other profile over the first T_PROFILE of them."""
+    print("== phase 8: profiles", flush=True)
+    frames = live_frames(T_LIVE)
+    out = {"FAST/BRIEF": run_profile(failures, "FAST", "BRIEF", frames,
+                                     full=True)}
+    for det, desc in PROFILE_PAIRS:
+        out[f"{det}/{desc}"] = run_profile(failures, det, desc,
+                                           frames[:T_PROFILE], full=False)
+    return out
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2223,6 +2472,16 @@ def main(argv: list) -> int:
         print(f"replay seeds: {time.perf_counter() - T_START:.1f} s",
               flush=True)
         return 0
+    if "--profiles-only" in argv:
+        # phases 1 and 8 alone: the front-end profiles, no result line
+        failures: list = []
+        profiles = phase_profiles(failures)
+        end_phase("profiles", failures)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "profiles.json").write_text(json.dumps(profiles, indent=1))
+        print(f"profiles only: {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        return 0
     rows = phase_kernels(cfg, camera, SlamRuntime(live_cfg).frontend)
     if "--kernels-only" in argv:
         # phases 1-2 alone: the kernels' checks and times, no result line
@@ -2251,6 +2510,9 @@ def main(argv: list) -> int:
     failures = []
     parity = phase_parity(cfg, path, failures)
     end_phase("parity", failures)
+    failures = []
+    profiles = phase_profiles(failures)
+    end_phase("profiles", failures)
 
     T = T_FRAMES
     # each kernel's launches come from the path that runs it: the s3 live
@@ -2283,7 +2545,9 @@ def main(argv: list) -> int:
             "launches_s3_live_path": live["launches"][name],
             "launches_large_map": large["launches"][name],
             "launches_parity_replay": parity["replay"]["launches"][name],
-            "launches_parity_engine": parity["engine"]["launches"][name]})
+            "launches_parity_engine": parity["engine"]["launches"][name],
+            "launches_profiles": {k: v["launches"][name]
+                                  for k, v in profiles.items()}})
     extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
              "cholsolve_336x1024", "brief_generic_256", "predict_n1024",
              "floor")
@@ -2300,7 +2564,8 @@ def main(argv: list) -> int:
                   large_map=large, sinv_path_row=rows["sinv"],
                   other_rows={k: rows[k] for k in extra},
                   cholsolve_checks=rows["cholsolve"]["checks"],
-                  parity=parity, seconds=time.perf_counter() - T_START)
+                  parity=parity, profiles=profiles,
+                  seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"replay path: frames/s {path['fps']:.2f} over {T} frames, host "
@@ -2314,8 +2579,12 @@ def main(argv: list) -> int:
     print(f"parity replay: frames/s {pr['fps']:.2f} over {T} frames, host "
           f"syncs {pr['syncs']}; parity engine: frames/s {pe['fps']:.2f} "
           f"over {T_PARITY_LIVE} frames, host syncs/frame "
-          f"{pe['syncs_per_frame']:.3f}; {time.perf_counter() - T_START:.1f}"
-          " s in all", flush=True)
+          f"{pe['syncs_per_frame']:.3f}", flush=True)
+    print("profiles: " + "; ".join(
+        f"{k} {v['fps']:.2f} frames/s over {v['frames']} frames, BRIEF "
+        f"{v['launches']['brief'] / v['frames']:.2f} a frame"
+        for k, v in profiles.items())
+        + f"; {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ Ported so far:
     ``engine.checkpoint`` (files in the JAX layout) and the CLI,
     ``python -m openekfmonoslam_tpu_torch.cli``;
   * the live path: ``SlamRuntime.init_step`` and ``SlamRuntime.step`` with
-    the STAR detector and BRIEF descriptors (the s3 profile), and
+    every detector (FAST, the default; STAR, the s3 profile's; ORB, SIFT,
+    SURF, HARRIS, SHI_TOMASI) and every descriptor (BRIEF, ORB, SURF /
+    SIFT floats) but the PATCH descriptor of the NCC matcher, and
     ``engine.scan_runner`` (``scan_frames``, ``run_sequence_on_device``);
     ``eval.replay.record_live_log`` records its injection log;
   * the filter replay path: ``SlamRuntime.step_injected``,

@@ -3,10 +3,9 @@
 The PyTorch port's own copy of ``openekfmonoslam_tpu/config.py``: the same
 dataclasses, defaults and YML loader, so a reference config file (e.g. the
 s3 ``config.yml``) loads unchanged into either package.  The port imports
-nothing of the JAX package, so it keeps this copy; the one difference is
-``DescriptorConfig.width``, which here covers the binary (and PATCH)
-descriptor widths only -- the float-descriptor width lives with the float
-descriptor module, which is not ported yet.  The JAX package's TPU-only
+nothing of the JAX package, so it keeps this copy, and takes the float
+descriptors' width from its own ``vision/floatdesc.py``.  The JAX
+package's TPU-only
 switches (the six ``*_kernel`` flags and ``matmul_precision``) have no
 counterpart: the port's kernel wrappers launch their CUDA kernel for every
 CUDA tensor and run the plain version for CPU tensors, and its matmuls are
@@ -154,9 +153,8 @@ class DescriptorConfig:
             return self.n_bits // 32
         if self.kind.upper() == "PATCH":
             return (2 * self.patch_radius + 1) ** 2
-        raise NotImplementedError(
-            f"{self.kind} float descriptors are not ported yet (ROADMAP.md "
-            "Queue 1 item 14)")
+        from openekfmonoslam_tpu_torch.vision import floatdesc
+        return floatdesc.DESC_DIM
 
 
 @dataclass(frozen=True)

@@ -1,17 +1,17 @@
 """The per-frame SLAM step (port of engine/step.py).
 
 ``SlamRuntime.step`` is EKF::step (EKF.cpp:242-666): predict, measurement
-prediction, STAR detection and BRIEF description inside the gate
-ellipses, gated 2-NN matching with subpixel refinement, 1-point RANSAC,
+prediction, detection and description inside the gate ellipses (the
+configured front end, vision/frontend.py), gated 2-NN matching with subpixel refinement, 1-point RANSAC,
 low-innovation update, re-prediction + chi2 rescue, high-innovation update
 and map management with new-feature detection.  ``init_step`` is EKF::init
 (EKF.cpp:170-237).  ``step_injected`` is the reference's HandMatching
 replay (HandMatching.cpp:37-99): the same filter on externally supplied
 per-slot matches.
 
-On the GPU a live frame runs six kinds of hand-written kernel: predict,
-measure x2, STAR, BRIEF, joint update x2, and init on frames that add
-features.  Every ``lax.cond`` of the JAX step around rare state surgery is
+On the GPU a live frame runs up to six kinds of hand-written kernel:
+predict, measure x2, STAR (the STAR detector), BRIEF (the BRIEF
+descriptor), joint update x2, and init on frames that add features.  Every ``lax.cond`` of the JAX step around rare state surgery is
 computed masked and selected on the device.  The one exception is new-
 feature detection (``phase_mapman``): the step reads (add?, needed) back
 once a frame, skips detection on frames that need nothing, as the JAX

@@ -45,7 +45,8 @@ class SlamState(NamedTuple):
     is_xyz: torch.Tensor          # (F,) bool: converted to XYZ
     times_predicted: torch.Tensor  # (F,) int32
     times_matched: torch.Tensor    # (F,) int32
-    descriptors: torch.Tensor     # (F, W) int32: uint32 words, bit-cast
+    descriptors: torch.Tensor     # (F, W) int32 (uint32 words, bit-cast)
+    #                               or float32 (float descriptors)
     patch_pose: torch.Tensor      # (F, 7) float32 template capture pose
     birth: torch.Tensor           # (F,) int32 insertion stamp
     rng: torch.Tensor             # () int64: config.seed (nothing on the
@@ -118,11 +119,10 @@ def make_initial_state(config: SlamConfig, dtype: torch.dtype,
     diag[7:10] = config.ekf.init_linear_accel_sd ** 2
     diag[10:13] = config.ekf.init_angular_accel_sd ** 2
 
-    if not config.descriptor.is_binary:
-        raise NotImplementedError(
-            f"{config.descriptor.kind} descriptors are not ported yet "
-            "(ROADMAP.md Queue 1 item 14)")
     i32 = dict(dtype=torch.int32, device=device)
+    # binary descriptors as int32 words (the uint32 bits), float ones as
+    # float32 lanes
+    desc_dtype = torch.int32 if config.descriptor.is_binary else torch.float32
     return SlamState(
         x=x,
         P=torch.diag(diag),
@@ -130,7 +130,8 @@ def make_initial_state(config: SlamConfig, dtype: torch.dtype,
         is_xyz=torch.zeros((f,), dtype=torch.bool, device=device),
         times_predicted=torch.zeros((f,), **i32),
         times_matched=torch.zeros((f,), **i32),
-        descriptors=torch.zeros((f, config.descriptor.width), **i32),
+        descriptors=torch.zeros((f, config.descriptor.width),
+                                dtype=desc_dtype, device=device),
         patch_pose=torch.zeros((f, 7), dtype=torch.float32, device=device),
         birth=torch.zeros((f,), **i32),
         rng=torch.full((), config.seed, dtype=torch.int64, device=device),
@@ -158,8 +159,9 @@ def state_from_numpy(fields: dict, device) -> SlamState:
     """A SlamState from the JAX SlamState's fields as numpy arrays
     (``{name: np.asarray(getattr(jax_state, name))}``).
 
-    Float fields keep their dtype; ``descriptors`` (uint32) are bit-cast to
-    int32; ``rng``, a JAX PRNGKey of the seed, becomes the seed."""
+    Float fields keep their dtype; binary ``descriptors`` (uint32) are
+    bit-cast to int32, float ones stay float32; ``rng``, a JAX PRNGKey of
+    the seed, becomes the seed."""
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
@@ -170,6 +172,8 @@ def state_from_numpy(fields: dict, device) -> SlamState:
     desc = np.asarray(fields["descriptors"])
     if desc.dtype == np.uint32:
         desc = desc.view(np.int32)
+    desc_dtype = (torch.float32 if np.issubdtype(desc.dtype, np.floating)
+                  else torch.int32)
     return SlamState(
         x=t(fields["x"]),
         P=t(fields["P"]),
@@ -177,7 +181,7 @@ def state_from_numpy(fields: dict, device) -> SlamState:
         is_xyz=t(fields["is_xyz"], torch.bool),
         times_predicted=t(fields["times_predicted"], torch.int32),
         times_matched=t(fields["times_matched"], torch.int32),
-        descriptors=t(desc, torch.int32),
+        descriptors=t(desc, desc_dtype),
         patch_pose=t(fields["patch_pose"], torch.float32),
         birth=t(fields["birth"], torch.int32),
         rng=torch.tensor(seed, dtype=torch.int64, device=device),
@@ -187,10 +191,13 @@ def state_from_numpy(fields: dict, device) -> SlamState:
 
 def state_to_numpy(state: SlamState) -> dict:
     """The JAX SlamState's fields as numpy arrays, in the JAX dtypes:
-    ``descriptors`` as uint32 and ``rng`` as the PRNGKey of the seed."""
+    binary ``descriptors`` as uint32, float ones as float32, and ``rng`` as
+    the PRNGKey of the seed."""
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in SlamState._fields}
-    out["descriptors"] = out["descriptors"].astype(np.int32).view(np.uint32)
+    if not np.issubdtype(out["descriptors"].dtype, np.floating):
+        out["descriptors"] = out["descriptors"].astype(np.int32).view(
+            np.uint32)
     seed = int(out["rng"])
     out["rng"] = np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
                           np.uint32)

@@ -22,6 +22,18 @@ import torch.nn.functional as nnf
 _BITS = [int(np.array(1 << j, np.uint32).view(np.int32)) for j in range(32)]
 
 
+def make_pattern(n_bits: int = 256, patch_size: int = 33, seed: int = 7
+                 ) -> np.ndarray:
+    """(n_bits, 4) int32 (dy1, dx1, dy2, dx2) offsets of classic BRIEF GII
+    sampling (both points i.i.d. N(0, (S/5)^2), clipped to the patch): the
+    ORB profile's pattern, the same draws as the JAX package's."""
+    rng = np.random.default_rng(seed)
+    half = patch_size // 2
+    sigma = patch_size / 5.0
+    pts = rng.normal(0.0, sigma, size=(n_bits, 4))
+    return np.clip(np.round(pts), -half, half).astype(np.int32)
+
+
 def make_shared_pattern(n_bits: int = 256, patch_size: int = 33,
                         seed: int = 7, n_points: int = 64
                         ) -> tuple[np.ndarray, np.ndarray]:
@@ -50,30 +62,46 @@ def gaussian_kernel(sigma: float, radius: int = 4) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def fused_taps(padded: torch.Tensor, view, kernel, center=None
+               ) -> torch.Tensor:
+    """sum_i kernel[i] * view(padded, i), rounded as XLA's fused chain of
+    the JAX modules' shift-and-add blurs: fma(k0, v0, round(k1 v1)), then
+    out = fma(k_i, v_i, out).  A float32 product is exact in float64 and,
+    at these magnitudes, so is the sum, so one rounding to float32 per tap
+    gives the fused result.  ``center``, a (source, scale) pair, gives the
+    middle tap as source * (k_mid scale) in place of (source scale) *
+    k_mid: XLA folds the two constants when the image is a scaled source
+    and the middle tap is its unshifted self (vision/dog.py)."""
+    mid = len(kernel) // 2
+
+    def tap(i):
+        if center is not None and i == mid:
+            src, scale = center
+            return src.double() * float(np.float32(kernel[i])
+                                        * np.float32(scale))
+        return kernel[i] * view(padded, i).double()
+
+    # the second tap's product rounds alone: a float32 product unless it
+    # is the folded middle tap
+    out = (tap(1).float() if center is not None and mid == 1
+           else kernel[1] * view(padded, 1))
+    out = (tap(0) + out.double()).float()
+    for i in range(2, len(kernel)):
+        out = (out.double() + tap(i)).float()
+    return out
+
+
 def smooth(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     """Separable 9-tap Gaussian blur with edge replication, vertical pass
-    then horizontal, taps in order; float32 out.
-
-    XLA folds the first two taps into fma(k0, v0, round(k1 v1)) and each
-    later one into out = fma(k, v, out).  A float32 product is exact in
-    float64 and, at these magnitudes, so is the sum, so one rounding to
-    float32 per tap gives the fused result."""
+    then horizontal, taps in order (``fused_taps``); float32 out."""
     kernel = [float(k) for k in gaussian_kernel(sigma)]
     r = len(kernel) // 2
     img = gray.to(torch.float32)
     h, w = img.shape
-
-    def taps(padded, view):
-        out = (kernel[1] * view(padded, 1)).float()
-        out = (kernel[0] * view(padded, 0).double() + out.double()).float()
-        for i in range(2, len(kernel)):
-            out = (out.double() + kernel[i] * view(padded, i).double()).float()
-        return out
-
     pad_v = nnf.pad(img[None, None], (0, 0, r, r), mode="replicate")[0, 0]
-    out = taps(pad_v, lambda p, i: p[i:i + h, :])
+    out = fused_taps(pad_v, lambda p, i: p[i:i + h, :], kernel)
     pad_h = nnf.pad(out[None, None], (r, r, 0, 0), mode="replicate")[0, 0]
-    return taps(pad_h, lambda p, i: p[:, i:i + w])
+    return fused_taps(pad_h, lambda p, i: p[:, i:i + w], kernel)
 
 
 def pattern_half(points) -> int:

@@ -1,6 +1,12 @@
-"""Keypoint selection from a score map (port of vision/fast.py, minus the
-FAST-9 score of the FAST profile, which is not ported yet).
+"""FAST-9/16 corner scores and keypoint selection from a score map (port
+of vision/fast.py).
 
+``fast_scores`` is the segment test of the FAST profile: the 16-pixel
+Bresenham ring of radius 3 around every pixel (wrapping round the image,
+as ``jnp.roll`` does; the 3 px border mask hides the wrap), the brighter
+and darker comparisons packed into 16-bit masks, the 9-contiguous test on
+the doubled masks, and the excess score summed over the qualifying ring
+pixels in ring order, so the score is the JAX module's bit for bit.
 ``non_max_suppress`` keeps local maxima; ``detect_keypoints`` takes the
 top K of a masked score map in a fixed order (score descending, ties to
 the lower flat index, as the JAX package's exact top-k on the CPU);
@@ -11,14 +17,64 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as nnf
+
+
+# Bresenham circle radius 3, clockwise from 12 o'clock: (dy, dx)
+RING_OFFSETS = (
+    (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
+    (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
+)
+
+ARC_LEN = 9  # FAST-9
 
 
 class Keypoints(NamedTuple):
     yx: torch.Tensor      # (K, 2) int32 row, col
     score: torch.Tensor   # (K,) float32
     valid: torch.Tensor   # (K,) bool
+
+
+def _contiguous_arc(mask16: torch.Tensor) -> torch.Tensor:
+    """True where a 16-bit circular mask holds >= ARC_LEN consecutive 1s:
+    the mask doubled into 32 bits (int64 here), ANDed with 8 shifted
+    copies; a surviving low bit marks a run start."""
+    d = mask16 | (mask16 << 16)
+    r = d
+    for s in range(1, ARC_LEN):
+        r = r & (d >> s)
+    return (r & 0xFFFF) != 0
+
+
+def fast_scores(gray: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per-pixel FAST-9 corner score (0 where not a corner), float32: the
+    sum over qualifying ring pixels of |I(ring) - I(p)| - t, in ring order,
+    where a ring pixel qualifies when it is brighter than I(p) + t or
+    darker than I(p) - t; 0 within 3 px of the border."""
+    img = gray.to(torch.float32)
+    h, w = img.shape
+    t = float(np.float32(threshold))
+    # ring k of pixel (y, x) is img[(y + dy) % h, (x + dx) % w]
+    wrapped = nnf.pad(img[None, None], (3, 3, 3, 3), mode="circular")[0, 0]
+    rings = torch.stack([wrapped[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                         for dy, dx in RING_OFFSETS])        # (16, H, W)
+    brighter = rings > img + t
+    darker = rings < img - t
+    weights = (1 << torch.arange(16, device=img.device,
+                                 dtype=torch.int64))[:, None, None]
+    corner = (_contiguous_arc(torch.sum(brighter * weights, dim=0))
+              | _contiguous_arc(torch.sum(darker * weights, dim=0)))
+    terms = torch.where(brighter | darker, torch.abs(rings - img) - t,
+                        torch.zeros_like(rings))
+    excess = torch.zeros_like(img)
+    for k in range(len(RING_OFFSETS)):
+        excess = excess + terms[k]
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    inside = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
+    return torch.where(corner & inside, excess, torch.zeros_like(img))
 
 
 def non_max_suppress(score: torch.Tensor, radius: int = 2) -> torch.Tensor:

@@ -16,14 +16,17 @@ import torch
 
 from openekfmonoslam_tpu_torch.vision import brief
 
+# the gated-out distance: an integer one for Hamming distances, a float
+# one for squared L2 (the JAX module's sentinels)
 BIG_DISTANCE = 1 << 20
+BIG_FLOAT_DISTANCE = 1e30
 
 
 class Matches(NamedTuple):
     z: torch.Tensor          # (F, 2) matched pixel (x, y); 0 where unmatched
     matched: torch.Tensor    # (F,) bool
     desc: torch.Tensor       # (F, W) matched keypoint descriptor
-    distance: torch.Tensor   # (F,) int32 Hamming distance (diagnostic)
+    distance: torch.Tensor   # (F,) Hamming (int32) or squared L2 (float)
     refreshed: torch.Tensor  # (F,) bool: desc holds a new template
 
 
@@ -97,7 +100,9 @@ def match_predictions(pred_uv: torch.Tensor, pred_S: torch.Tensor,
     gated = (md <= gate) & kp_valid[None, :] & visible[:, None]
 
     dist = distance_fn(map_desc, kp_desc)                      # (F, K)
-    big = torch.full_like(dist, BIG_DISTANCE)
+    big_value = (BIG_FLOAT_DISTANCE if dist.dtype.is_floating_point
+                 else BIG_DISTANCE)
+    big = torch.full_like(dist, big_value)
     dist_g = torch.where(gated, dist, big)
 
     # 2-NN as two masked argmin passes
@@ -120,6 +125,6 @@ def match_predictions(pred_uv: torch.Tensor, pred_S: torch.Tensor,
     desc = torch.where(matched[:, None], best_desc,
                        torch.zeros_like(best_desc))
     return Matches(z=z, matched=matched, desc=desc,
-                   distance=torch.where(matched, d1, torch.full_like(
-                       d1, BIG_DISTANCE)),
+                   distance=torch.where(matched, d1,
+                                        torch.full_like(d1, big_value)),
                    refreshed=matched)

@@ -23,11 +23,10 @@ package agree bit for bit wherever their inputs do:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from openekfmonoslam_tpu_torch.vision.harris import _box_sum, _shift
+from openekfmonoslam_tpu_torch.vision.harris import _box_sum, _f32, _shift
 
 # CenSurE scale ladder (filter half-sizes), as in OpenCV's StarDetector.
 SCALE_LADDER = (1, 2, 3, 4, 6, 8, 11, 16, 22, 32, 45, 64, 90, 128)
@@ -60,11 +59,6 @@ def _integral(img: torch.Tensor, pad: int) -> torch.Tensor:
 def inv_area(n: int) -> float:
     """Reciprocal of the (2n+1)^2 box area (rounded to float32 where used)."""
     return 1.0 / float((2 * n + 1) ** 2)
-
-
-def _f32(v: float) -> float:
-    """``v`` rounded to float32, as a Python float."""
-    return float(np.float32(v))
 
 
 def star_responses(gray: torch.Tensor, max_size: int = 16

@@ -26,7 +26,8 @@ def test_every_port_module_imports_without_jax():
                  "ops.brief_kernel", "io.sources", "eval.replay",
                  "engine.engine", "engine.checkpoint", "eval.trajectory",
                  "eval.result_reader", "cli", "ops.sinv", "ops.cholsolve",
-                 "eval.oracle", "eval.compare"):
+                 "eval.oracle", "eval.compare", "vision.dog", "vision.orb",
+                 "vision.floatdesc", "vision.harris", "vision.fast"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

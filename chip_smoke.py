@@ -5,6 +5,7 @@
                                  # device and the CUDA toolkit (nvcc)
     python3 chip_smoke.py --kernels-only    # phases 1 and 2 alone
     python3 chip_smoke.py --profiles-only   # phases 1 and 8 alone
+    python3 chip_smoke.py --engine-features-only   # phases 1 and 9-11
     python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
                                  # agreement at other scenes (phase 1 first)
 
@@ -100,8 +101,35 @@ Phases, each of which passes or raises (the script then exits non-zero):
               (1e-4 m, masks 95%); then ORB/ORB, SIFT/SURF, SURF/SURF,
               HARRIS/BRIEF and SHI_TOMASI/ORB, each with the config's
               defaults, over the first 21 of those frames with the same
-              checks but the second run and the sync count (10 steps
-              under the profiler).
+              checks but the second run (10 steps under the profiler).
+  9. ncc      the NCC matcher live: SlamConfig(matcher="ncc") with PATCH
+              descriptors at their defaults (F = 96, patch radius 7,
+              search radius 10, the warp on, FAST for additions) over the
+              first 101 of phase 5's frames through run_sequence_on_device,
+              with every launch counter set to 0 just before and read just
+              after; a sync debug run (at most 1 a frame), 20 steps under
+              torch.profiler with a range around warp_templates, ncc_match
+              and extract_patches_bilinear, ncc_match with warped templates
+              on frame T/2's own inputs against the same functions' plain
+              float32 run on the CPU (matched and refreshed identical, z
+              within 1e-3 px, templates within 1e-5), and the live log
+              replayed in float64 (1e-4 m, masks 95%);
+ 10. loop     SlamEngine with the s3 profile, keyframe_every 6 and
+              relocalize_after 3 over tests/test_loop_closure.py's scenario
+              on phase 5's texture (46 frames forward, 8 black, back):
+              launches, at least one relocalization and one accepted loop
+              closure, corrected_trajectory()'s endpoint error under 0.8x
+              the raw one, the card's optimised graph against the same raw
+              graph optimised on the CPU in float64 (1e-4 m), optimize's
+              device ms, a pose-graph checkpoint round trip, and host syncs
+              on keyframe frames and on the others (at most 2);
+ 11. serve    SlamServer(SlamConfig()) on the card in a thread on a unix
+              socket, driven by the C client (native/ekf_client.c built
+              with gcc into build/torch_kernels/, loaded by ctypes): 21
+              frames whose served poses must equal an in-process
+              SlamEngine's bit for bit, a second session, a bad session
+              and a bad frame answered with errors while the daemon keeps
+              serving, and ms a step through the socket and in process.
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
 (bit for bit) on a textured 640x480 frame and on an odd 483x645 one:
@@ -130,11 +158,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -162,17 +192,20 @@ from openekfmonoslam_tpu_torch.filter import predict as pred_mod
 from openekfmonoslam_tpu_torch.filter import ransac as ransac_mod
 from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import dim_active_mask
+from openekfmonoslam_tpu_torch.graph import pose_graph as graph_mod
 from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            cuda_lib, init_kernel,
                                            measure_kernel, predict_kernel,
                                            sinv, spd_core, star_kernel,
                                            update_kernel)
+from openekfmonoslam_tpu_torch.serving import server as server_mod
 from openekfmonoslam_tpu_torch.vision import brief
 from openekfmonoslam_tpu_torch.vision import dog as dog_mod
 from openekfmonoslam_tpu_torch.vision import fast as fast_mod
 from openekfmonoslam_tpu_torch.vision import floatdesc
 from openekfmonoslam_tpu_torch.vision import harris as harris_mod
+from openekfmonoslam_tpu_torch.vision import ncc as ncc_mod
 from openekfmonoslam_tpu_torch.vision import orb as orb_mod
 from openekfmonoslam_tpu_torch.vision import star
 from openekfmonoslam_tpu_torch.vision.frontend import Frontend
@@ -2298,11 +2331,32 @@ def check_profile_frame(failures, tag: str, runtime: SlamRuntime,
                 peaks=int((aux_p["score_nms"] > 0).sum()))
 
 
+def live_syncs(failures, tag: str, runtime: SlamRuntime, st0,
+               gpu_frames) -> dict:
+    """The host syncs of scan_frames over ``gpu_frames[1:]`` from ``st0``
+    under sync debug mode, by site: at most LIVE_SYNCS_PER_FRAME a frame,
+    all at the read of phase_mapman."""
+    S = len(gpu_frames) - 1
+    sites, sync_s = count_syncs(
+        lambda: scan_runner.scan_frames(runtime, st0, gpu_frames[1:]))
+    syncs = sum(sites.values())
+    allowed = {source_line(step_mod, ".tolist()")}
+    print(f"  {tag}: sync debug run {S / sync_s:.2f} steps/s, {syncs} host "
+          f"syncs ({syncs / S:.3f} a frame): {dict(sites)}", flush=True)
+    check(failures, syncs / S <= LIVE_SYNCS_PER_FRAME
+          and set(sites) <= allowed,
+          f"{tag}: host syncs a frame {syncs / S:.3f} <= "
+          f"{LIVE_SYNCS_PER_FRAME}, all at {sorted(allowed)}")
+    return dict(syncs=syncs, syncs_per_frame=syncs / S,
+                sync_sites=dict(sites), fps_sync_debug=S / sync_s)
+
+
 def run_profile(failures, det: str, desc: str, frames: np.ndarray,
                 full: bool) -> dict:
     """One profile on the card through run_sequence_on_device, with every
-    launch counter set to 0 just before and read just after; ``full`` adds
-    a second timed run and the host-sync count (the default path)."""
+    launch counter set to 0 just before and read just after, and the
+    host-sync count; ``full`` adds a second timed run (the default
+    path)."""
     tag = f"{det}/{desc}"
     t_start = time.perf_counter()
     cfg = profile_config(det, desc)
@@ -2360,19 +2414,8 @@ def run_profile(failures, det: str, desc: str, frames: np.ndarray,
         scan_runner.run_sequence_on_device(runtime, frames)
         torch.cuda.synchronize()
         out["fps_again"] = T / (time.perf_counter() - t0)
-        sites, sync_s = count_syncs(
-            lambda: scan_runner.scan_frames(runtime, st0, gpu_frames[1:]))
-        syncs = sum(sites.values())
-        allowed = {source_line(step_mod, ".tolist()")}
-        print(f"  {tag}: again {out['fps_again']:.2f} frames/s; sync debug "
-              f"run {S / sync_s:.2f} steps/s, {syncs} host syncs "
-              f"({syncs / S:.3f} a frame): {dict(sites)}", flush=True)
-        check(failures, syncs / S <= LIVE_SYNCS_PER_FRAME
-              and set(sites) <= allowed,
-              f"{tag}: host syncs a frame {syncs / S:.3f} <= "
-              f"{LIVE_SYNCS_PER_FRAME}, all at {sorted(allowed)}")
-        out.update(syncs=syncs, syncs_per_frame=syncs / S,
-                   sync_sites=dict(sites), fps_sync_debug=S / sync_s)
+        print(f"  {tag}: again {out['fps_again']:.2f} frames/s", flush=True)
+    out.update(live_syncs(failures, tag, runtime, st0, gpu_frames))
 
     # per-phase ms and the front end's chains under the profiler
     n_prof = min(S, DEFAULT_PROFILED if full else PROFILE_PROFILED)
@@ -2442,6 +2485,518 @@ def phase_profiles(failures: list) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 9
+
+T_NCC = 101               # frames of the NCC cell: init_step + 100 steps
+NCC_PROFILED = 20         # its steps under the profiler
+# the NCC chain's functions, each a profiler range (extract_patches_bilinear
+# runs inside ncc_match and counts in both)
+NCC_CHAINS = {"ncc.warp_templates": (ncc_mod, "warp_templates"),
+              "ncc.ncc_match": (ncc_mod, "ncc_match"),
+              "ncc.extract_patches_bilinear": (ncc_mod,
+                                               "extract_patches_bilinear")}
+# the card's ncc_match against the same functions' plain float32 run on
+# the CPU: the matched pixels (px) and the stored templates
+NCC_Z_TOL = 1e-3
+NCC_DESC_TOL = 1e-5
+
+
+def ncc_config() -> SlamConfig:
+    """SlamConfig(matcher="ncc") with PATCH descriptors at their defaults:
+    F = 96, patch radius 7, search radius 10, the warp on, FAST for the
+    additions."""
+    return SlamConfig(matcher="ncc", descriptor=DescriptorConfig(kind="PATCH"))
+
+
+def to_cpu(t):
+    """A named tuple of tensors (SlamState, Prediction) on the CPU."""
+    return type(t)(*(f.cpu() for f in t))
+
+
+def check_ncc_frame(failures, tag: str, runtime: SlamRuntime, state,
+                    gray) -> dict:
+    """warp_templates and ncc_match on one frame's own inputs on the card
+    against the same port functions' plain float32 run on the CPU."""
+    state, pred = runtime.phase_predict(state)
+    aux = runtime.frontend.precompute(gray)
+    m = runtime.match_ncc(state, pred, aux)
+    cpu = SlamRuntime(runtime.config, device="cpu")
+    st_c, pred_c = to_cpu(state), to_cpu(pred)
+    aux_c = cpu.frontend.precompute(gray.cpu())
+    m_c = cpu.match_ncc(st_c, pred_c, aux_c)
+    same_m = torch.equal(m.matched.cpu(), m_c.matched)
+    same_r = torch.equal(m.refreshed.cpu(), m_c.refreshed)
+    z_err = max_abs(m.z.cpu(), m_c.z)
+    d_err = max_abs(m.desc.cpu(), m_c.desc)
+    smooth_same = torch.equal(aux["smoothed"].cpu(), aux_c["smoothed"])
+    print(f"  {tag}: {int(m.matched.sum())} matched of "
+          f"{int(pred.visible.sum())} visible, {int(m.refreshed.sum())} "
+          f"refreshed; card vs CPU: matched {same_m}, refreshed {same_r}, "
+          f"z {z_err:.3e} px, desc {d_err:.3e}, smoothed image identical "
+          f"{smooth_same}", flush=True)
+    check(failures, same_m and same_r,
+          f"{tag}: matched and refreshed identical to the CPU's")
+    check(failures, z_err <= NCC_Z_TOL and d_err <= NCC_DESC_TOL,
+          f"{tag}: z within {NCC_Z_TOL} px ({z_err:.3e}), desc within "
+          f"{NCC_DESC_TOL} ({d_err:.3e})")
+    return dict(matched=int(m.matched.sum()),
+                refreshed=int(m.refreshed.sum()), z_err=z_err,
+                desc_err=d_err, smoothed_identical=smooth_same)
+
+
+def phase_ncc(failures: list, T: int = T_NCC) -> dict:
+    """The NCC matcher live: SlamConfig(matcher="ncc", PATCH) over the first
+    T of phase 5's frames."""
+    print("== phase 9: ncc live", flush=True)
+    t_start = time.perf_counter()
+    cfg = ncc_config()
+    runtime = SlamRuntime(cfg)
+    frames = live_frames(T_LIVE)[:T]
+    S = T - 1
+    print(f"  SlamConfig(matcher=ncc, PATCH): patch radius "
+          f"{cfg.descriptor.patch_radius}, search radius "
+          f"{cfg.ncc_search_radius}, warp {cfg.ncc_warp}, min corr "
+          f"{cfg.ncc_min_corr}, refresh below {cfg.ncc_refresh_below}, "
+          f"detector {cfg.detector.kind}; F = {cfg.max_features}, "
+          f"{cfg.dtype}, {frames.shape[2]}x{frames.shape[1]}, {T} frames",
+          flush=True)
+    scan_runner.run_sequence_on_device(runtime, frames[:21])    # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, recs = scan_runner.run_sequence_on_device(runtime, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    fps = T / elapsed
+    print(f"  main path: run_sequence_on_device over {T} frames in "
+          f"{elapsed:.4f} s = {fps:.2f} frames/s; launches {launches}",
+          flush=True)
+    check(failures, launches["predict"] == S and launches["measure"] == 2 * S
+          and launches["update"] == 2 * S,
+          f"predict {S}, measure {2 * S}, fused update {2 * S}")
+    check(failures, launches["brief"] == launches["star"] == 0
+          and launches["brief_generic"] == launches["star_direct"] == 0,
+          "no STAR or BRIEF launch (FAST detector, PATCH descriptors)")
+    check(failures, launches["measure_quirks"] == launches["sinv"] == 0,
+          "no quirks measure, no S-inverse")
+    check(failures, 1 <= launches["init"] == launches["init_augment"] <= T,
+          f"each addition launches (A) and (B) once ({launches['init']})")
+    check(failures, bool(torch.isfinite(state.x).all())
+          and bool(torch.isfinite(state.P).all()), "final x and P finite")
+    matched = recs.total_matches.astype(np.int64)
+    inl = (recs.li_inliers + recs.hi_inliers).astype(np.int64)
+    healthy = float(np.mean(inl >= 0.5 * matched))
+    check(failures, healthy >= 0.9 and matched.mean() >= 20,
+          f"tracking healthy on {healthy:.3f} of frames (>= 0.9): mean "
+          f"matched {matched.mean():.1f} (>= 20), mean inliers "
+          f"{inl.mean():.1f}, {int(recs.new_ok.sum())} features added")
+    out = dict(launches=launches, fps=fps, elapsed_s=elapsed, frames=T,
+               healthy=healthy, mean_matched=float(matched.mean()),
+               mean_inliers=float(inl.mean()),
+               added=int(recs.new_ok.sum()))
+
+    gpu_frames = runtime._tensor(frames)
+    st0 = runtime.init_step(runtime.make_initial_state(), gpu_frames[0])
+    torch.cuda.synchronize()
+    out.update(live_syncs(failures, "ncc", runtime, st0, gpu_frames))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, chain_ranges(NCC_CHAINS):
+        scan_runner.scan_frames(runtime, st0,
+                                gpu_frames[1:1 + NCC_PROFILED])
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, NCC_PROFILED, LIVE_PHASE_PREFIX)
+    dev_ms = device_ms(averages, NCC_PROFILED)
+    chains = chain_device(prof.events(), NCC_PROFILED, tuple(NCC_CHAINS))
+    print(f"  ncc under the profiler ({NCC_PROFILED} steps), ms a frame "
+          "(host, device of PyTorch's kernels): " + ", ".join(
+              f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+              for k, v in phase_ms.items()), flush=True)
+    print_device(dev_ms, kernel_device_us(averages, NCC_PROFILED,
+                                          UPDATE_KERNEL_NAMES))
+    print("  NCC chains, a frame: " + "; ".join(
+        f"{k} {v['device_us']:.2f} device us in {v['launches']:.2f} device "
+        f"launches ({v['calls']:.2f} calls, host {v['host_us']:.1f} us)"
+        for k, v in chains.items()), flush=True)
+    out.update(phase_ms=phase_ms, device_ms=dev_ms, chains=chains,
+               profiled_steps=NCC_PROFILED)
+
+    # ncc_match with warp_templates on frame T/2's own inputs
+    mid, _ = scan_runner.scan_frames(runtime, st0, gpu_frames[1:T // 2])
+    out["mid_frame"] = check_ncc_frame(failures, f"frame {T // 2}", runtime,
+                                       mid, gpu_frames[T // 2])
+
+    # the live log, replayed on the CPU in float64
+    log = replay.record_live_log(runtime, gpu_frames)
+    card = log["records"]
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    t0 = time.perf_counter()
+    _, recs64 = replay.replay_records(rt64, log)
+    cpu_s = time.perf_counter() - t0
+    agree = against_float64(card.x_cam, card.inliers, card.visible, recs64)
+    print(f"  ncc: float64 CPU replay of the live log {cpu_s:.1f} s: "
+          f"deviation max {agree['dev_max']:.3e} (frame "
+          f"{agree['worst_frame']}), final {agree['dev_final']:.3e}; inlier "
+          f"masks identical on {agree['inliers_same']:.3f} of frames, "
+          f"visibility on {agree['visible_same']:.3f}", flush=True)
+    check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
+          f"ncc: live replay deviation <= {LIVE_REPLAY_TOL} on every frame "
+          f"(worst {agree['dev_max']:.3e})")
+    check(failures, agree["inliers_same"] >= LIVE_MASKS_SAME
+          and agree["visible_same"] >= LIVE_MASKS_SAME,
+          f"ncc: live replay masks identical on >= {LIVE_MASKS_SAME} of "
+          "frames")
+    out["replay"] = dict(cpu_s=cpu_s, **agree)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  ncc: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+LOOP_FORWARD = 46         # tests/test_loop_closure.py's scenario: forward,
+LOOP_BLACK = 8            # black frames, then the forward frames reversed
+LOOP_KEYFRAME_EVERY = 6
+LOOP_RELOCALIZE_AFTER = 3
+LOOP_ITERATIONS = 40      # corrected_trajectory's Gauss-Newton steps
+LOOP_NODE_TOL = 1e-4      # the card's optimised graph vs float64 on the CPU
+LOOP_SYNCS_PER_FRAME = 2.0  # frames without a keyframe: the engine's two
+
+
+def loop_frames() -> list:
+    fwd = list(live_frames(T_LIVE)[:LOOP_FORWARD])
+    return fwd + [np.zeros_like(fwd[0])] * LOOP_BLACK + fwd[::-1][1:]
+
+
+def loop_engine(cfg: SlamConfig) -> SlamEngine:
+    return SlamEngine(cfg, keyframe_every=LOOP_KEYFRAME_EVERY,
+                      relocalize_after=LOOP_RELOCALIZE_AFTER)
+
+
+def syncs_by_frame(engine: SlamEngine, seq) -> tuple[list, float]:
+    """init + step over ``seq`` under sync debug mode: the host syncs of
+    each frame (index 0 is init) with their sites, and the seconds."""
+    per_frame: list = [collections.Counter()]
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if "synchronizing CUDA operation" in str(message):
+            per_frame[-1][f"{Path(filename).name}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            engine.init(seq[0])
+            for f in seq[1:]:
+                per_frame.append(collections.Counter())
+                engine.step(f)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return per_frame, seconds
+
+
+def graph_to(graph, device, dtype):
+    return graph._replace(**{f: getattr(graph, f).to(device=device,
+                                                     dtype=dtype)
+                             for f in ("node_r", "node_q", "edge_dr",
+                                       "edge_dq", "edge_info")},
+                          **{f: getattr(graph, f).to(device)
+                             for f in ("node_active", "n_nodes", "edge_ij",
+                                       "edge_active", "n_edges")})
+
+
+def phase_loop(live_cfg: SlamConfig, failures: list) -> dict:
+    """SlamEngine with the s3 profile and the pose graph over the
+    loop-closure scenario on phase 5's texture."""
+    print("== phase 10: loop closure", flush=True)
+    t_start = time.perf_counter()
+    seq = loop_frames()
+    T = len(seq)
+    S = T - 1
+    print(f"  SlamEngine(s3 profile, keyframe_every={LOOP_KEYFRAME_EVERY}, "
+          f"relocalize_after={LOOP_RELOCALIZE_AFTER}): {LOOP_FORWARD} frames "
+          f"forward, {LOOP_BLACK} black, {LOOP_FORWARD - 1} back; "
+          f"{seq[0].shape[1]}x{seq[0].shape[0]}, {T} frames", flush=True)
+    run_sequence(loop_engine(live_cfg), seq[:13])                # warm-up
+    torch.cuda.synchronize()
+    engine = loop_engine(live_cfg)
+    reset_launches()
+    t0 = time.perf_counter()
+    run_sequence(engine, seq)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    fps = T / elapsed
+    closures = engine.loop_closer.closures
+    print(f"  run_sequence over {T} frames in {elapsed:.4f} s = {fps:.2f} "
+          f"frames/s; {engine.relocalizations} relocalizations, keyframes at "
+          f"{engine.keyframe_frames}; closures (i, j, matches, rms px): "
+          + str([(c["i"], c["j"], c["matches"], round(c["rms_px"], 3))
+                 for c in closures]), flush=True)
+    print(f"  launches {launches}", flush=True)
+    check(failures, launches["predict"] == S and launches["measure"] == 2 * S
+          and launches["update"] == 2 * S,
+          f"predict {S}, measure {2 * S}, fused update {2 * S}")
+    # STAR and BRIEF: a frame each, once more for each bootstrap and for
+    # each keyframe that looks for a closure (LoopCloser._signature)
+    check(failures, launches["star"] == launches["brief"] >= T,
+          f"STAR and BRIEF launched together, at least once a frame "
+          f"({launches['star']}, {launches['brief']})")
+    check(failures, engine.relocalizations >= 1,
+          f"relocalized ({engine.relocalizations})")
+    check(failures, len(closures) >= 1,
+          f"at least one loop closure accepted ({len(closures)})")
+
+    raw = np.asarray([r["position"] for r in engine.records])
+    raw_graph = engine.pose_graph
+    k = int(raw_graph.n_nodes)
+    corrected = engine.corrected_trajectory(LOOP_ITERATIONS)
+    raw_err = float(np.linalg.norm(raw[-1] - raw[0]))
+    corr_err = float(np.linalg.norm(corrected[-1] - corrected[0]))
+    check(failures, corr_err < 0.8 * raw_err,
+          f"endpoint error corrected {corr_err:.4f} m < 0.8 x raw "
+          f"{raw_err:.4f} m")
+    cpu64 = graph_mod.optimize(graph_to(raw_graph, "cpu", torch.float64),
+                               LOOP_ITERATIONS)
+    node_err = float(np.abs(engine.pose_graph.node_r[:k].cpu().double()
+                            .numpy() - cpu64.node_r[:k].numpy()).max())
+    check(failures, node_err <= LOOP_NODE_TOL,
+          f"the card's optimised graph ({k} nodes, "
+          f"{int(raw_graph.n_edges)} edges) against the same graph "
+          f"optimised on the CPU in float64: {node_err:.3e} m <= "
+          f"{LOOP_NODE_TOL}")
+
+    # optimize's device time (40 steps) and its launches
+    opt_ms = events_ms(lambda: graph_mod.optimize(raw_graph,
+                                                  LOOP_ITERATIONS), reps=2,
+                       warm=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph_mod.optimize(raw_graph, LOOP_ITERATIONS)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    opt_dev_ms = device_ms(averages, 1)
+    opt_launches = sum(e.count for e in averages
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  optimize ({LOOP_ITERATIONS} steps, capacity "
+          f"{raw_graph.capacity}): {opt_ms:.3f} ms on the device timeline, "
+          f"{opt_dev_ms:.3f} ms in {opt_launches} device launches",
+          flush=True)
+
+    # a pose-graph checkpoint round trip through the engine
+    OUT.mkdir(exist_ok=True)
+    ckpt = str(OUT / "loop_checkpoint.npz")
+    engine.save_checkpoint(ckpt)
+    resumed = loop_engine(live_cfg)
+    resumed.resume(ckpt)
+    same = all(torch.equal(getattr(resumed.pose_graph, f),
+                           getattr(engine.pose_graph, f))
+               for f in engine.pose_graph._fields)
+    check(failures, same, "the pose-graph checkpoint resumes bit for bit")
+
+    # host syncs by frame: keyframe frames against the others
+    per_frame, sync_s = syncs_by_frame(loop_engine(live_cfg), seq)
+    kf_frames = set(engine.keyframe_frames)
+    on_kf = [sum(c.values()) for i, c in enumerate(per_frame)
+             if i in kf_frames]
+    off_kf = [sum(c.values()) for i, c in enumerate(per_frame)
+              if i and i not in kf_frames]
+    kf_sites = sum((c for i, c in enumerate(per_frame) if i in kf_frames),
+                   collections.Counter())
+    off_sites = sum((c for i, c in enumerate(per_frame)
+                     if i and i not in kf_frames), collections.Counter())
+    print(f"  sync debug run {S / sync_s:.2f} frames/s: {len(on_kf)} "
+          f"keyframe frames, {np.mean(on_kf):.2f} syncs each (at most "
+          f"{max(on_kf)}): {dict(kf_sites)}; the other {len(off_kf)} "
+          f"frames {np.mean(off_kf):.2f} each (at most {max(off_kf)}): "
+          f"{dict(off_sites)}", flush=True)
+    check(failures, max(off_kf) <= LOOP_SYNCS_PER_FRAME,
+          f"frames without a keyframe: at most {LOOP_SYNCS_PER_FRAME} host "
+          f"syncs ({max(off_kf)})")
+    out = dict(fps=fps, elapsed_s=elapsed, frames=T, launches=launches,
+               relocalizations=engine.relocalizations,
+               keyframe_frames=engine.keyframe_frames,
+               closures=[{k_: c[k_] for k_ in ("i", "j", "matches",
+                                               "rms_px", "frame_i",
+                                               "frame_j")}
+                         for c in closures],
+               raw_endpoint_err=raw_err, corrected_endpoint_err=corr_err,
+               node_err_vs_cpu64=node_err, optimize_ms=opt_ms,
+               optimize_device_ms=opt_dev_ms, optimize_launches=opt_launches,
+               syncs_keyframe_frames=float(np.mean(on_kf)),
+               syncs_other_frames=float(np.mean(off_kf)),
+               sync_sites_keyframe=dict(kf_sites),
+               sync_sites_other=dict(off_sites),
+               fps_sync_debug=S / sync_s)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  loop closure: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 11
+
+SERVE_FRAMES = 21         # init + 20 steps through the socket
+
+
+class EkfPose(ctypes.Structure):
+    """native/ekf_client.h's ekf_pose."""
+    _fields_ = [("r", ctypes.c_double * 3), ("q", ctypes.c_double * 4),
+                ("v", ctypes.c_double * 3), ("matches", ctypes.c_uint32),
+                ("li_inliers", ctypes.c_uint32),
+                ("hi_inliers", ctypes.c_uint32),
+                ("map_size", ctypes.c_uint32)]
+
+
+def client_library():
+    """native/ekf_client.c compiled with gcc into build/torch_kernels/ and
+    loaded by ctypes, as a host application links it."""
+    so = ROOT / "build" / "torch_kernels" / "libekfclient.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-std=gnu11",
+                    str(ROOT / "native" / "ekf_client.c"), "-o", str(so)],
+                   check=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+    lib.ekf_connect.restype = ctypes.c_void_p
+    lib.ekf_connect.argtypes = [ctypes.c_char_p]
+    lib.ekf_create.restype = ctypes.c_int64
+    lib.ekf_create.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.ekf_init.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                             ctypes.c_char_p, ctypes.c_uint32,
+                             ctypes.c_uint32]
+    lib.ekf_step.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                             ctypes.c_char_p, ctypes.c_uint32,
+                             ctypes.c_uint32, ctypes.POINTER(EkfPose)]
+    lib.ekf_state.restype = ctypes.c_int64
+    lib.ekf_state.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                              ctypes.POINTER(ctypes.c_double),
+                              ctypes.c_size_t]
+    lib.ekf_release.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+    lib.ekf_last_error.restype = ctypes.c_char_p
+    lib.ekf_last_error.argtypes = [ctypes.c_void_p]
+    lib.ekf_disconnect.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def serve_session(failures, lib, client, frames, tag: str) -> tuple:
+    """A session over ``frames`` through the C client: the served poses
+    (r, q, v, matches, map size) a frame and the seconds of the steps."""
+    sid = lib.ekf_create(client, b"")
+    check(failures, sid > 0, f"{tag}: session created ({sid})")
+    h, w = frames[0].shape
+    rc = lib.ekf_init(client, sid, frames[0].tobytes(), h, w)
+    check(failures, rc == 0, f"{tag}: init ({rc})")
+    pose, served = EkfPose(), []
+    t0 = time.perf_counter()
+    for f in frames[1:]:
+        rc = lib.ekf_step(client, sid, f.tobytes(), h, w, ctypes.byref(pose))
+        if rc:
+            check(failures, False, f"{tag}: step ({rc}, "
+                  f"{lib.ekf_last_error(client)})")
+            break
+        served.append(list(pose.r) + list(pose.q) + list(pose.v)
+                      + [pose.matches, pose.map_size])
+    seconds = time.perf_counter() - t0
+    lib.ekf_release(client, sid)
+    return np.asarray(served), seconds
+
+
+def phase_serve(failures: list) -> dict:
+    """SlamServer on the card in a thread on a unix socket, driven by the C
+    client; its poses against an in-process SlamEngine's."""
+    print("== phase 11: serve", flush=True)
+    t_start = time.perf_counter()
+    frames = list(live_frames(T_LIVE)[:SERVE_FRAMES])
+    lib = client_library()
+    cfg = SlamConfig()
+    OUT.mkdir(exist_ok=True)
+    sock = str(OUT / "ekf.sock")
+    server = server_mod.SlamServer(cfg)
+    ready = threading.Event()
+    thread = threading.Thread(target=server.serve, args=(sock, ready),
+                              daemon=True)
+    thread.start()
+    check(failures, ready.wait(30), "the daemon listens")
+    print(f"  SlamServer(SlamConfig()) on {server.device}, {sock}; "
+          f"{len(frames)} frames a session", flush=True)
+    client = lib.ekf_connect(sock.encode())
+    check(failures, bool(client), "the C client connects")
+    serve_session(failures, lib, client, frames[:4], "warm-up")
+    served, serve_s = serve_session(failures, lib, client, frames,
+                                    "session 1")
+
+    engine = SlamEngine(cfg)
+    run_sequence(SlamEngine(cfg), frames[:4])                   # warm-up
+    engine.init(frames[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [r["position"] + r["orientation"] + r["linear_velocity"]
+            + [r["total_matches"], r["n_active"]]
+            for r in (engine.step(f) for f in frames[1:])]
+    local_s = time.perf_counter() - t0
+    want = np.asarray(want)
+    same = served.shape == want.shape and served.tobytes() == want.tobytes()
+    gap = (float(np.abs(served - want).max())
+           if served.shape == want.shape else float("nan"))
+    check(failures, same, f"the served poses equal the in-process "
+          f"engine's bit for bit ({len(served)} steps, max gap {gap:.3e})")
+
+    other, _ = serve_session(failures, lib, client, frames[2:8],
+                             "session 2")
+    check(failures, len(other) == 5 and bool(np.isfinite(other).all())
+          and not np.array_equal(other[:, :3], served[:5, :3]),
+          "a second session runs on its own (finite poses of its own)")
+
+    pose = EkfPose()
+    rc = lib.ekf_step(client, 9999, b"\0" * 16, 4, 4, ctypes.byref(pose))
+    err = lib.ekf_last_error(client)
+    sid = lib.ekf_create(client, b"")
+    rc_bad = lib.ekf_init(client, sid, b"\0" * 16, 4, 4)
+    err_bad = lib.ekf_last_error(client)
+    h, w = frames[0].shape
+    rc_after = lib.ekf_init(client, sid, frames[0].tobytes(), h, w)
+    lib.ekf_release(client, sid)
+    check(failures, rc == -3 and b"9999" in err and rc_bad == -3
+          and b"frame payload" in err_bad and rc_after == 0
+          and thread.is_alive(),
+          f"a bad session and a bad frame return errors ({err!r}, "
+          f"{err_bad!r}) and the daemon keeps serving")
+    lib.ekf_disconnect(client)
+    server.shutdown()
+    thread.join(30)
+    check(failures, not thread.is_alive(), "the daemon shuts down")
+    Path(sock).unlink(missing_ok=True)
+    steps = len(frames) - 1
+    out = dict(frames=len(frames), served_identical=same, max_gap=gap,
+               ms_per_frame_socket=serve_s / steps * 1e3,
+               ms_per_frame_in_process=local_s / steps * 1e3)
+    print(f"  ms a step: {out['ms_per_frame_socket']:.3f} through the "
+          f"socket, {out['ms_per_frame_in_process']:.3f} in process",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  serve: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_engine_features(live_cfg: SlamConfig) -> dict:
+    """Phases 9-11: the NCC matcher, the pose graph with loop closure, and
+    the serving daemon."""
+    out = {}
+    for name, fn in (("ncc", lambda f: phase_ncc(f)),
+                     ("loop closure", lambda f: phase_loop(live_cfg, f)),
+                     ("serve", phase_serve)):
+        failures: list = []
+        out[name] = fn(failures)
+        end_phase(name, failures)
+    return out
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2482,6 +3037,15 @@ def main(argv: list) -> int:
         print(f"profiles only: {time.perf_counter() - T_START:.1f} s",
               flush=True)
         return 0
+    if "--engine-features-only" in argv:
+        # phases 1 and 9-11 alone: NCC, loop closure, serve; no result line
+        features = phase_engine_features(live_cfg)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "engine_features.json").write_text(
+            json.dumps(features, indent=1))
+        print(f"engine features only: {time.perf_counter() - T_START:.1f} "
+              "s", flush=True)
+        return 0
     rows = phase_kernels(cfg, camera, SlamRuntime(live_cfg).frontend)
     if "--kernels-only" in argv:
         # phases 1-2 alone: the kernels' checks and times, no result line
@@ -2513,6 +3077,7 @@ def main(argv: list) -> int:
     failures = []
     profiles = phase_profiles(failures)
     end_phase("profiles", failures)
+    features = phase_engine_features(live_cfg)
 
     T = T_FRAMES
     # each kernel's launches come from the path that runs it: the s3 live
@@ -2547,7 +3112,10 @@ def main(argv: list) -> int:
             "launches_parity_replay": parity["replay"]["launches"][name],
             "launches_parity_engine": parity["engine"]["launches"][name],
             "launches_profiles": {k: v["launches"][name]
-                                  for k, v in profiles.items()}})
+                                  for k, v in profiles.items()},
+            "launches_ncc": features["ncc"]["launches"][name],
+            "launches_loop_closure": features["loop closure"]["launches"][
+                name]})
     extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
              "cholsolve_336x1024", "brief_generic_256", "predict_n1024",
              "floor")
@@ -2565,6 +3133,7 @@ def main(argv: list) -> int:
                   other_rows={k: rows[k] for k in extra},
                   cholsolve_checks=rows["cholsolve"]["checks"],
                   parity=parity, profiles=profiles,
+                  engine_features=features,
                   seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2580,6 +3149,14 @@ def main(argv: list) -> int:
           f"syncs {pr['syncs']}; parity engine: frames/s {pe['fps']:.2f} "
           f"over {T_PARITY_LIVE} frames, host syncs/frame "
           f"{pe['syncs_per_frame']:.3f}", flush=True)
+    nc, lc, sv = (features[k] for k in ("ncc", "loop closure", "serve"))
+    print(f"ncc: frames/s {nc['fps']:.2f} over {nc['frames']} frames, host "
+          f"syncs/frame {nc['syncs_per_frame']:.3f}; loop closure: frames/s "
+          f"{lc['fps']:.2f} over {lc['frames']} frames, {len(lc['closures'])}"
+          f" closures, endpoint {lc['raw_endpoint_err']:.4f} -> "
+          f"{lc['corrected_endpoint_err']:.4f} m; serve: "
+          f"{sv['ms_per_frame_socket']:.3f} ms a step through the socket",
+          flush=True)
     print("profiles: " + "; ".join(
         f"{k} {v['fps']:.2f} frames/s over {v['frames']} frames, BRIEF "
         f"{v['launches']['brief'] / v['frames']:.2f} a frame"

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
@@ -31,11 +32,7 @@ _NOT_PORTED = {
                     "(ROADMAP Queue 1 item 19, viz/)",
     "viz3d": "--viz3d: the 3D map view is not ported yet "
              "(ROADMAP Queue 1 item 19, viz/)",
-    "keyframe_every": "--keyframe-every: the keyframe pose graph is not "
-                      "ported yet (ROADMAP Queue 1 item 16, graph/)",
 }
-_NCC = ("--matcher ncc: the NCC matcher is not ported yet (ROADMAP Queue 1 "
-        "item 15, vision/ncc.py)")
 
 
 def build_source(spec: str, begin: int, end: int,
@@ -78,8 +75,9 @@ def main(argv=None):
     ap.add_argument("--max-features", type=int, default=None)
     ap.add_argument("--matcher", choices=("descriptor", "ncc"), default=None,
                     help="guided-matching backend: detected-keypoint "
-                         "descriptors (reference Matching.cpp); ncc is not "
-                         "ported yet (ROADMAP Queue 1 item 15)")
+                         "descriptors (reference Matching.cpp) or NCC "
+                         "patch correlation (Davison active search, PATCH "
+                         "descriptors)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="save an exact-resume checkpoint to "
                          "OUTPUT/checkpoint.npz every N frames")
@@ -99,7 +97,10 @@ def main(argv=None):
                          "syncs, scan mode attributes the per-frame budget "
                          "by a calibration pass")
     ap.add_argument("--keyframe-every", type=int, default=0,
-                    help="not ported yet (ROADMAP Queue 1 item 16)")
+                    help="enable the keyframe pose-graph layer: snapshot "
+                         "a keyframe every N frames; loop closures are "
+                         "detected on keyframes and the optimized "
+                         "trajectory is exported to OUTPUT")
     ap.add_argument("--relocalize-after", type=int, default=0,
                     help="auto map-reset after N consecutive lost frames")
     ap.add_argument("--viz3d", type=int, default=0, metavar="N",
@@ -111,14 +112,16 @@ def main(argv=None):
     for key, msg in _NOT_PORTED.items():
         if getattr(args, key):
             ap.error(msg)
-    if args.matcher == "ncc":
-        ap.error(_NCC)
 
     overrides = {}
     if args.max_features:
         overrides["max_features"] = args.max_features
     if args.matcher:
         overrides["matcher"] = args.matcher
+        if args.matcher == "ncc":
+            # NCC stores appearance patches in the descriptor slots
+            from openekfmonoslam_tpu_torch.config import DescriptorConfig
+            overrides["descriptor"] = DescriptorConfig(kind="PATCH")
 
     from openekfmonoslam_tpu_torch.engine.engine import (SlamEngine,
                                                          run_sequence)
@@ -180,6 +183,7 @@ def main(argv=None):
 
     engine = SlamEngine(args.config, output_path=args.output,
                         phase_timing=args.phase_timing,
+                        keyframe_every=args.keyframe_every,
                         relocalize_after=args.relocalize_after,
                         device=args.device, **overrides)
     ckpt_path = (os.path.join(args.output, "checkpoint.npz")
@@ -211,6 +215,26 @@ def main(argv=None):
     print(summarize(engine.records))
     if args.output:
         emit_matlab_report(engine.records, args.output)
+    if (engine.loop_closer is not None and engine.loop_closer.closures
+            and args.output):
+        # the drift-corrected trajectory beside the raw one
+        import numpy as np
+
+        from openekfmonoslam_tpu_torch.eval.result_reader import (
+            write_points3d)
+        corrected = engine.corrected_trajectory()
+        np.save(os.path.join(args.output, "trajectory_corrected.npy"),
+                corrected)
+        write_points3d(
+            os.path.join(args.output, "cameraPositionsCorrected.m"),
+            "cameraPositionsCorrected", corrected)
+        with open(os.path.join(args.output, "loop_closures.json"),
+                  "w") as f:
+            json.dump([{k: (v.tolist() if hasattr(v, "tolist") else v)
+                        for k, v in c.items()}
+                       for c in engine.loop_closer.closures], f, indent=2)
+        print(f"{len(engine.loop_closer.closures)} loop closure(s); "
+              "corrected trajectory written")
     engine.close()
 
 

@@ -83,6 +83,27 @@ def _metric_r2(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     return mx * mx + my * my
 
 
+def _newton_step(cam: Camera, rd: torch.Tensor, ru: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Newton step on r_d + k1 r_d^3 + k2 r_d^5 = r_u: (the new r_d,
+    the derivative g'(r_d) it divided by)."""
+    rd2 = rd * rd
+    f = rd + cam.k1 * rd2 * rd + cam.k2 * rd2 * rd2 * rd - ru
+    fp = 1.0 + 3.0 * cam.k1 * rd2 + 5.0 * cam.k2 * rd2 * rd2
+    return rd - f / fp, fp
+
+
+def _newton_radius(cam: Camera, r2: torch.Tensor, steps: int
+                   ) -> torch.Tensor:
+    """The metric distorted radius of r_u = sqrt(r2) after ``steps`` Newton
+    steps from r_u / (1 + k1 r2 + k2 r2^2)."""
+    ru = torch.sqrt(r2)
+    rd = ru / (1.0 + cam.k1 * r2 + cam.k2 * r2 * r2)
+    for _ in range(steps):
+        rd = _newton_step(cam, rd, ru)[0]
+    return rd
+
+
 def distort(cam: Camera, uv_undist: torch.Tensor) -> torch.Tensor:
     """Undistorted pixel -> distorted pixel via Newton inversion.
 
@@ -95,16 +116,38 @@ def distort(cam: Camera, uv_undist: torch.Tensor) -> torch.Tensor:
     dv = uv_undist[..., 1] - cam.cy
     # floor r^2 at the principal point exactly as the JAX version
     r2 = torch.clamp(_metric_r2(cam, uv_undist), min=1e-12)
-    ru = torch.sqrt(r2)
-    rd = ru / (1.0 + cam.k1 * r2 + cam.k2 * r2 * r2)
-    for _ in range(_NEWTON_ITERS + 1):
-        rd2 = rd * rd
-        f = rd + cam.k1 * rd2 * rd + cam.k2 * rd2 * rd2 * rd - ru
-        fp = 1.0 + 3.0 * cam.k1 * rd2 + 5.0 * cam.k2 * rd2 * rd2
-        rd = rd - f / fp
+    rd = _newton_radius(cam, r2, _NEWTON_ITERS + 1)
     rd2 = rd * rd
     d = 1.0 + cam.k1 * rd2 + cam.k2 * rd2 * rd2
     return torch.stack([cam.cx + du / d, cam.cy + dv / d], dim=-1)
+
+
+def distort_jacobian(cam: Camera, uv_undist: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 2) d distort / d uv_undist: the derivative that
+    ``jax.jacfwd`` takes through the JAX version, d(rd)/d(ru) = 1/g'(rd) at
+    the converged root (the implicit step) and nothing through the r^2
+    floor at the principal point."""
+    du = uv_undist[..., 0] - cam.cx
+    dv = uv_undist[..., 1] - cam.cy
+    r2_raw = _metric_r2(cam, uv_undist)
+    r2 = torch.clamp(r2_raw, min=1e-12)
+    ru = torch.sqrt(r2)
+    rd, fp = _newton_step(cam, _newton_radius(cam, r2, _NEWTON_ITERS), ru)
+    rd2 = rd * rd
+    d = 1.0 + cam.k1 * rd2 + cam.k2 * rd2 * rd2
+    # dd/d(du) = dd/drd * drd/dru * dru/dr2 * dr2/d(du)
+    a = torch.where(r2_raw > 1e-12,
+                    (2.0 * cam.k1 * rd + 4.0 * cam.k2 * rd2 * rd)
+                    / (fp * ru), torch.zeros_like(ru))
+    dd_du = a * (cam.dx * cam.dx) * du
+    dd_dv = a * (cam.dy * cam.dy) * dv
+    inv_d = 1.0 / d
+    inv_d2 = inv_d * inv_d
+    return torch.stack([
+        torch.stack([inv_d - du * inv_d2 * dd_du, -du * inv_d2 * dd_dv],
+                    dim=-1),
+        torch.stack([-dv * inv_d2 * dd_du, inv_d - dv * inv_d2 * dd_dv],
+                    dim=-1)], dim=-2)
 
 
 def undistort(cam: Camera, uv_dist: torch.Tensor) -> torch.Tensor:

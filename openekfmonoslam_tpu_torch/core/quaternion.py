@@ -45,8 +45,9 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    """(w, -x, -y, -z), by sign flips on the device (no constant to
+    upload)."""
+    return torch.cat([q[..., 0:1], -q[..., 1:4]], dim=-1)
 
 
 def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:

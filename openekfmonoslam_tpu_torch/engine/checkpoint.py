@@ -9,9 +9,10 @@ continues bit for bit.
 
 Files are the JAX package's layout, written and read through
 ``filter/state.state_to_numpy`` / ``state_from_numpy``: descriptors as
-uint32, rng as the PRNGKey words.  Either package loads the other's file.
-The pose-graph files (``save_pose_graph`` / ``load_pose_graph``) wait for
-``graph/`` (ROADMAP Queue 1 item 16).
+uint32, rng as the PRNGKey words.  Either package loads the other's file,
+and the pose-graph files (``save_pose_graph`` / ``load_pose_graph``: the
+``PoseGraph`` fields by name, float32 poses, int32 counts and indices)
+too.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from openekfmonoslam_tpu_torch.filter.state import (SlamState,
                                                     state_from_numpy,
                                                     state_to_numpy)
+from openekfmonoslam_tpu_torch.graph.pose_graph import PoseGraph
 
 _FIELDS = SlamState._fields
 
@@ -57,6 +59,20 @@ def load_checkpoint(path: str, like: SlamState | None = None) -> SlamState:
             arrays[f] = got.astype(want[f].dtype)
     device = like.x.device if like is not None else torch.device("cpu")
     return state_from_numpy(arrays, device)
+
+
+def save_pose_graph(path: str, graph: PoseGraph) -> None:
+    """Checkpoint the keyframe pose graph beside the filter state."""
+    np.savez_compressed(path, **{f: getattr(graph, f).cpu().numpy()
+                                 for f in PoseGraph._fields})
+
+
+def load_pose_graph(path: str, device=None) -> PoseGraph:
+    """A pose graph from ``save_pose_graph`` (of either package), on
+    ``device`` (the CPU without one)."""
+    with np.load(path) as data:
+        return PoseGraph(**{f: torch.as_tensor(data[f], device=device)
+                            for f in PoseGraph._fields})
 
 
 def reset_map(state: SlamState, init_like: SlamState) -> SlamState:

@@ -24,6 +24,14 @@ wall times; EKF.cpp:405-628), as JSONL plus an output.yml for the
 resultReader tooling (``eval/result_reader.py``).  ``step`` reads one
 packed summary back a frame, in one device-to-host copy; the step itself
 adds the one read of ``SlamRuntime.phase_mapman``.
+
+``keyframe_every > 0`` adds the keyframe pose graph (graph/pose_graph.py)
+with automatic loop closure (graph/loop_closure.py): a keyframe every
+``keyframe_every`` frames and on every relocalization, each one a place
+recognition query against the older keyframes.  A keyframe frame reads
+back twice more (the candidates' match counts and the PnP's result); the
+graph lives on the engine's device and ``corrected_trajectory`` optimises
+it there.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ from openekfmonoslam_tpu_torch.config import (SlamConfig, auto_max_features,
 from openekfmonoslam_tpu_torch.engine import checkpoint
 from openekfmonoslam_tpu_torch.engine.step import SlamRuntime, StepRecord
 from openekfmonoslam_tpu_torch.eval import result_reader
+from openekfmonoslam_tpu_torch.graph import pose_graph as graph_mod
+from openekfmonoslam_tpu_torch.graph.loop_closure import (LoopCloser,
+                                                          correct_trajectory)
 from openekfmonoslam_tpu_torch.io.sources import to_gray
 
 # where the JAX engine's options that are not ported yet stand in ROADMAP.md
-_GRAPH = "the keyframe pose graph (ROADMAP Queue 1 item 16, graph/)"
 _VIZ = "viz/ (ROADMAP Queue 1 item 19)"
 
 
@@ -65,8 +75,6 @@ class SlamEngine:
             raise _not_ported(f"rendering overlays, {_VIZ},")
         if viz3d_every > 0:
             raise _not_ported(f"the 3D map view, {_VIZ},")
-        if keyframe_every > 0:
-            raise _not_ported(_GRAPH)
         if isinstance(config, SlamConfig):
             cfg = config
         else:
@@ -91,6 +99,29 @@ class SlamEngine:
         self.lost_matches_threshold = lost_matches_threshold
         self.lost_streak = 0
         self.relocalizations = 0
+
+        # the keyframe pose graph: a keyframe every ``keyframe_every``
+        # frames, loop closures by place recognition + PnP
+        self.keyframe_every = keyframe_every
+        self.pose_graph = None
+        self.loop_closer = None
+        self.keyframe_frames: list[int] = []
+        self._graph_nodes = 0    # the graph's n_nodes, counted on the host
+        if keyframe_every > 0:
+            # odometry-edge information: the relative motion noise over the
+            # keyframe interval (velocity random walk, k^3/2 growth), not
+            # the inverse absolute covariance, which shrinks as the filter
+            # converges and would drown the loop-closure edges
+            k = float(keyframe_every)
+            sig_r = max(cfg.ekf.linear_accel_sd * k ** 1.5, 1e-5)
+            sig_t = max(cfg.ekf.angular_accel_sd * k ** 1.5, 1e-5)
+            self._odometry_info = torch.diag(torch.tensor(
+                [1.0 / sig_r ** 2] * 3 + [1.0 / sig_t ** 2] * 3,
+                dtype=torch.float32)).to(self.device)
+            self.pose_graph = graph_mod.make_pose_graph(
+                max_nodes=keyframe_capacity,
+                max_edges=4 * keyframe_capacity, device=self.device)
+            self.loop_closer = LoopCloser(self.runtime)
 
         self.output_path = output_path
         self._jsonl = None
@@ -181,6 +212,9 @@ class SlamEngine:
         else:
             self.state, rec = self.runtime.step(self.state, gray)
         self.frame_index += 1
+        if (self.pose_graph is not None
+                and self.frame_index % self.keyframe_every == 0):
+            self._take_keyframe(gray)
         # no separate sync: the summary's copy waits for the step
         summary = self._summary(rec)
         record = self._summary_to_dict(summary, time.perf_counter() - t0)
@@ -200,6 +234,10 @@ class SlamEngine:
                 self.lost_streak = 0
                 self.relocalizations += 1
                 record["relocalized"] = True
+                if self.pose_graph is not None:
+                    # immediate keyframe: the re-bootstrap scene is the
+                    # place-recognition query for a loop-closure edge
+                    self._take_keyframe(gray)
 
         self.records.append(record)
         if self._jsonl:
@@ -216,14 +254,69 @@ class SlamEngine:
                 f"map {record['n_active']}\n")
         return record
 
+    def _take_keyframe(self, gray: torch.Tensor) -> None:
+        """Snapshot a keyframe into the pose graph, then try a loop closure
+        against the older keyframes (graph/loop_closure.py)."""
+        node_index = self._graph_nodes
+        if node_index >= self.pose_graph.capacity[0]:
+            # a full graph takes no node, so no edge can reach this frame
+            return
+        self.pose_graph = graph_mod.add_keyframe(
+            self.pose_graph, self.state.x[0:3], self.state.x[3:7],
+            self._odometry_info)
+        self._graph_nodes += 1
+        self.keyframe_frames.append(self.frame_index)
+
+        kf = self.loop_closer.snapshot(self.state, node_index,
+                                       self.frame_index)
+        closure = self.loop_closer.try_close(gray, kf)
+        if closure is None:
+            return
+        self.pose_graph = graph_mod.add_loop_edge(
+            self.pose_graph, closure["i"], closure["j"], closure["dr"],
+            closure["dq"], closure["info"])
+        if self._log:
+            self._log.write(
+                f"loop closure: keyframe {closure['i']} <- {closure['j']} "
+                f"(frames {closure['frame_i']} <- {closure['frame_j']}), "
+                f"{closure['matches']} matches, rms "
+                f"{closure['rms_px']:.2f}px\n")
+
+    def _require_graph(self) -> None:
+        if self.pose_graph is None:
+            raise RuntimeError("pose graph disabled (keyframe_every=0)")
+
+    def _graph_poses(self) -> tuple[np.ndarray, np.ndarray]:
+        k = self._graph_nodes
+        return (self.pose_graph.node_r[:k].cpu().numpy().astype(np.float64),
+                self.pose_graph.node_q[:k].cpu().numpy().astype(np.float64))
+
     def corrected_trajectory(self, iterations: int = 40) -> np.ndarray:
-        raise _not_ported(_GRAPH)
+        """Optimise the pose graph and return the (T, 3) drift-corrected
+        per-frame camera positions (raw positions moved by each nearest
+        preceding keyframe's graph correction)."""
+        self._require_graph()
+        raw_r, raw_q = self._graph_poses()
+        self.optimize_pose_graph(iterations)
+        opt_r, opt_q = self._graph_poses()
+        rec_r = np.asarray([r["position"] for r in self.records])
+        rec_q = np.asarray([r["orientation"] for r in self.records])
+        return correct_trajectory(rec_r, rec_q, self.keyframe_frames,
+                                  raw_r, raw_q, opt_r, opt_q)
 
     def add_loop_closure(self, i: int, j: int, dr, dq, info=None) -> None:
-        raise _not_ported(_GRAPH)
+        """Add a loop-closure edge between keyframes i and j (when the
+        camera re-observes keyframe j's scene)."""
+        self._require_graph()
+        self.pose_graph = graph_mod.add_loop_edge(self.pose_graph, i, j, dr,
+                                                  dq, info)
 
-    def optimize_pose_graph(self, iterations: int = 10):
-        raise _not_ported(_GRAPH)
+    def optimize_pose_graph(self, iterations: int = 10) -> np.ndarray:
+        """Gauss-Newton over the keyframe graph; returns the optimised
+        (K, 3) keyframe positions."""
+        self._require_graph()
+        self.pose_graph = graph_mod.optimize(self.pose_graph, iterations)
+        return self.pose_graph.node_r[:self._graph_nodes].cpu().numpy()
 
     # ------------------------------------------------------------------
     @property
@@ -268,14 +361,21 @@ class SlamEngine:
         return result_reader.write_output_yml(self.records, path)
 
     def save_checkpoint(self, path: str) -> None:
-        """Exact-resume checkpoint of the full filter carry."""
+        """Exact-resume checkpoint of the full filter carry (and of the
+        pose graph, beside it)."""
         checkpoint.save_checkpoint(path, self.state)
+        if self.pose_graph is not None:
+            checkpoint.save_pose_graph(path + ".graph.npz", self.pose_graph)
 
     def resume(self, path: str) -> None:
         """Restore a checkpoint (bit-exact continuation; the capability the
         reference left unimplemented, State.cpp:364-367)."""
         self.state = checkpoint.load_checkpoint(path, like=self.state)
         self.frame_index = int(self.state.frame)
+        gpath = path + ".graph.npz"
+        if self.pose_graph is not None and os.path.exists(gpath):
+            self.pose_graph = checkpoint.load_pose_graph(gpath, self.device)
+            self._graph_nodes = int(self.pose_graph.n_nodes)
 
     def close(self) -> None:
         if self._jsonl:

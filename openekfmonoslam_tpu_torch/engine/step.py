@@ -11,7 +11,9 @@ per-slot matches.
 
 On the GPU a live frame runs up to six kinds of hand-written kernel:
 predict, measure x2, STAR (the STAR detector), BRIEF (the BRIEF
-descriptor), joint update x2, and init on frames that add features.  Every ``lax.cond`` of the JAX step around rare state surgery is
+descriptor), joint update x2, and init on frames that add features.  The
+NCC matcher (``matcher="ncc"``, PATCH descriptors) replaces detection and
+descriptor matching by patch correlation (PyTorch's convolutions).  Every ``lax.cond`` of the JAX step around rare state surgery is
 computed masked and selected on the device.  The one exception is new-
 feature detection (``phase_mapman``): the step reads (add?, needed) back
 once a frame, skips detection on frames that need nothing, as the JAX
@@ -43,8 +45,10 @@ from openekfmonoslam_tpu_torch.filter import predict as pred_mod
 from openekfmonoslam_tpu_torch.filter import ransac as ransac_mod
 from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import SlamState, make_initial_state
-from openekfmonoslam_tpu_torch.vision import detect, fast, matching
-from openekfmonoslam_tpu_torch.vision.frontend import Frontend, make_frontend
+from openekfmonoslam_tpu_torch.vision import detect, fast, matching, ncc
+from openekfmonoslam_tpu_torch.vision.frontend import (Frontend,
+                                                       check_matcher,
+                                                       make_frontend)
 
 # profiler range prefixes of step_injected's and step's phases
 PHASE_PREFIX = "step_injected."
@@ -100,6 +104,7 @@ class SlamRuntime:
     """Static per-run context: config scalars, camera, device, dtype."""
 
     def __init__(self, config: SlamConfig, device=None):
+        check_matcher(config)
         self.config = config
         self.device = resolve_device(device)
         self.dtype = (torch.float64 if config.dtype == "float64"
@@ -195,11 +200,14 @@ class SlamRuntime:
 
     def phase_match(self, state: SlamState, pred, gray: torch.Tensor):
         """[2] guided matching (EKF.cpp:330-345): front-end precompute,
-        gate-region mask, detection, gated 2-NN, subpixel refinement."""
+        gate-region mask, then detection, gated 2-NN and subpixel
+        refinement, or the detection-free NCC search (vision/ncc.py)."""
         cfg = self.config
         aux = self.frontend.precompute(gray)
         in_ellipse = matching.ellipse_union_mask(
             tuple(gray.shape), pred.uv, pred.S, pred.visible, self.gate)
+        if cfg.matcher == "ncc":
+            return self.match_ncc(state, pred, aux), aux, in_ellipse
         kps = fast.detect_keypoints(
             aux["score_nms"], in_ellipse & self._border_mask(gray.shape),
             cfg.max_keypoints)
@@ -215,6 +223,25 @@ class SlamRuntime:
             m = m._replace(z=fast.subpixel_refine(
                 aux["score_raw"].to(self.dtype), m.z, m.matched))
         return m, aux, in_ellipse
+
+    def match_ncc(self, state: SlamState, pred, aux) -> matching.Matches:
+        """Correlate each landmark's stored patch over its gate region,
+        with and without the homography-warped template when
+        ``ncc_warp``."""
+        cfg = self.config
+        pr = cfg.descriptor.patch_radius
+        corr_patches = None
+        if cfg.ncc_warp:
+            cam = self.camera
+            corr_patches = ncc.warp_templates(
+                state.descriptors, state.patch_pose, state.features,
+                state.is_xyz, state.x[:7], pred.uv, pred.visible,
+                cam.fx, cam.fy, cam.cx, cam.cy, pr)
+        return ncc.ncc_match(
+            aux["smoothed"], pred.uv, pred.S, pred.visible,
+            state.descriptors, self.gate, pr, cfg.ncc_search_radius,
+            cfg.ncc_min_corr, refresh_below=cfg.ncc_refresh_below,
+            corr_patches=corr_patches)
 
     def phase_ransac(self, state: SlamState, pred, m):
         """[3] 1-point RANSAC (EKF.cpp:400-417)."""

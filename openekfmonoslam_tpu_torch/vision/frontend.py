@@ -11,10 +11,10 @@ Contract used by engine/step.py:
 Detectors: FAST (the default), STAR, ORB (pyramid FAST ranked by
 Harris), SIFT (DoG), SURF (DoH), HARRIS and SHI_TOMASI (also SHITOMASI,
 GFTT).  Descriptors: BRIEF (binary words from dense bit-planes), ORB
-(steered BRIEF) and SURF / SIFT (64 floats, squared L2 distance).  The
-descriptor's storage (width, dtype) follows ``DescriptorConfig`` so that
-``SlamState`` preallocates its slots.  The PATCH descriptor and the NCC
-matcher are ROADMAP.md Queue 1 item 15.
+(steered BRIEF), SURF / SIFT (64 floats, squared L2 distance) and PATCH
+(zero-mean unit-norm appearance patches, the NCC matcher's templates,
+vision/ncc.py).  The descriptor's storage (width, dtype) follows
+``DescriptorConfig`` so that ``SlamState`` preallocates its slots.
 
 On the GPU a frame runs hand-written kernels here: STAR scoring with NMS
 (ops/star_kernel.py) on the STAR profile, and the BRIEF bit-planes
@@ -32,10 +32,17 @@ import torch
 from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.ops import brief_kernel, star_kernel
 from openekfmonoslam_tpu_torch.vision import (brief, dog, fast, floatdesc,
-                                              harris, orb)
+                                              harris, ncc, orb)
 
-_NCC = ("is not ported yet: the PATCH descriptor and the NCC matcher are "
-        "ROADMAP.md Queue 1 item 15 (vision/ncc.py)")
+
+def check_matcher(config: SlamConfig) -> None:
+    """The NCC matcher correlates stored appearance patches: it needs the
+    PATCH descriptor (the JAX package's check, same type and text)."""
+    if (config.matcher == "ncc"
+            and config.descriptor.kind.upper() != "PATCH"):
+        raise ValueError(
+            "matcher='ncc' requires descriptor kind 'PATCH' (the state "
+            f"must hold appearance patches), got {config.descriptor.kind!r}")
 
 
 class Frontend:
@@ -46,10 +53,7 @@ class Frontend:
         self.det_kind = det.kind.upper()
         self.desc_kind = desc.kind.upper()
         self.is_binary = desc.is_binary
-        if config.matcher == "ncc" or self.desc_kind == "PATCH":
-            what = (f"matcher {config.matcher!r}" if config.matcher == "ncc"
-                    else f"descriptor {desc.kind!r}")
-            raise NotImplementedError(f"{what} {_NCC}")
+        check_matcher(config)
         self.desc_width = desc.width
         self.desc_dtype = torch.int32 if self.is_binary else torch.float32
         # widest sampling window any stage reaches past a keypoint
@@ -125,7 +129,7 @@ class Frontend:
     # -- per-keypoint extraction -----------------------------------------
     def describe(self, aux: dict, yx: torch.Tensor) -> torch.Tensor:
         """(K, 2) keypoints -> (K, width) descriptors: int32 words (the
-        uint32 bits) for binary kinds, float32 for SURF / SIFT."""
+        uint32 bits) for binary kinds, float32 for SURF / SIFT and PATCH."""
         if self.desc_kind == "BRIEF":
             return brief.lookup_descriptors(aux["planes"], yx,
                                             self.brief_pattern.half)
@@ -133,6 +137,9 @@ class Frontend:
             ang = orb.angles_at(aux["m10"], aux["m01"], yx)
             return orb.steered_extract(aux["smoothed"], yx, ang,
                                        self.orb_pattern)
+        if self.desc_kind == "PATCH":
+            return ncc.extract_patches(aux["smoothed"], yx,
+                                       self.config.descriptor.patch_radius)
         return floatdesc.surf64(aux["smoothed"], yx,
                                 self.config.descriptor.float_radius)
 

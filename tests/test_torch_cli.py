@@ -164,13 +164,28 @@ def test_checkpoint_every_then_resume(files, interactive):
 
 @pytest.mark.parametrize("flags,item", [
     (["--render"], "item 19"), (["--render-debug"], "item 19"),
-    (["--viz3d", "2"], "item 19"), (["--keyframe-every", "5"], "item 16"),
-    (["--matcher", "ncc"], "item 15")])
+    (["--viz3d", "2"], "item 19")])
 def test_options_not_ported_stop_with_their_roadmap_item(files, capsys,
                                                          flags, item):
     with pytest.raises(SystemExit):
         cli.main([files["config"], files["frames"], *flags, *ARGS])
     assert f"ROADMAP Queue 1 {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,what", [
+    (["--keyframe-every", "2"], "graph"), (["--matcher", "ncc"], "ncc")])
+def test_keyframe_every_and_the_ncc_matcher_run(files, capsys, flags, what):
+    """--keyframe-every (the pose graph) and --matcher ncc (PATCH
+    descriptors) run on the CPU as the JAX CLI's options do."""
+    out = files["dir"] / f"opt_{what}"
+    cli.main([files["config"], files["frames"], str(out), "--end", "5",
+              *flags, *ARGS])
+    recs = read_jsonl(out / "records.jsonl")
+    assert [r["frame"] for r in recs] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["position"]).all() for r in recs)
+    assert "fps" in capsys.readouterr().out
+    if what == "ncc":
+        assert sum(r["total_matches"] for r in recs) > 0
 
 
 def test_the_card_is_the_default_device(files, monkeypatch):

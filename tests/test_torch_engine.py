@@ -214,17 +214,41 @@ def test_config_file_sizes_the_large_map_in_both_packages(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(render=True), dict(render_debug=True), dict(keyframe_every=5),
-    dict(viz3d_every=2)])
+    dict(render=True), dict(render_debug=True), dict(viz3d_every=2)])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.SlamEngine(make_config(tcfg), device="cpu", **option)
+
+
+def test_keyframe_every_builds_the_pose_graph_on_the_engine_device():
+    engine = teng.SlamEngine(make_config(tcfg), device="cpu",
+                             keyframe_every=5, keyframe_capacity=8)
+    graph = engine.pose_graph
+    assert graph.capacity == (8, 32)
+    assert graph.node_r.device == torch.device("cpu")
+    assert graph.node_r.dtype == torch.float32        # as in JAX
+    assert engine.loop_closer is not None
 
 
 @pytest.mark.parametrize("method,args", [
     ("corrected_trajectory", ()), ("optimize_pose_graph", ()),
     ("add_loop_closure", (0, 1, np.zeros(3), np.array([1.0, 0, 0, 0])))])
 def test_pose_graph_methods_raise(method, args):
+    """Without a pose graph (keyframe_every=0) each method raises what the
+    JAX engine's raises; with one it runs."""
     engine = teng.SlamEngine(make_config(tcfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError) as got:
         getattr(engine, method)(*args)
+    with pytest.raises(RuntimeError) as want:
+        getattr(jeng.SlamEngine(make_config(jcfg)), method)(*args)
+    assert str(got.value) == str(want.value)
+    engine = teng.SlamEngine(make_config(tcfg), device="cpu",
+                             keyframe_every=1, keyframe_capacity=4)
+    frames = make_frames()
+    engine.init(frames[0])
+    engine.step(frames[1])
+    engine.step(frames[2])
+    getattr(engine, method)(*args)
+    assert int(engine.pose_graph.n_nodes) == 2
+    assert int(engine.pose_graph.n_edges) == (
+        2 if method == "add_loop_closure" else 1)

@@ -27,7 +27,9 @@ def test_every_port_module_imports_without_jax():
                  "engine.engine", "engine.checkpoint", "eval.trajectory",
                  "eval.result_reader", "cli", "ops.sinv", "ops.cholsolve",
                  "eval.oracle", "eval.compare", "vision.dog", "vision.orb",
-                 "vision.floatdesc", "vision.harris", "vision.fast"):
+                 "vision.floatdesc", "vision.harris", "vision.fast",
+                 "vision.ncc", "graph.pose_graph", "graph.loop_closure",
+                 "serving.protocol", "serving.server"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

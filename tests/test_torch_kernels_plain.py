@@ -337,17 +337,21 @@ def test_runtime_without_device_needs_cuda(monkeypatch):
         tstep.SlamRuntime(TConfig(max_features=8))
     rt = tstep.SlamRuntime(TConfig(max_features=8), device="cpu")
     assert rt.device == torch.device("cpu")
-    # SlamConfig()'s FAST + BRIEF front end runs on the CPU; the PATCH
-    # descriptor of the NCC matcher is the one profile not ported yet
+    # SlamConfig()'s FAST + BRIEF front end runs on the CPU, and so do the
+    # PATCH descriptor and the NCC matcher
     state, rec = rt.step(rt.make_initial_state(),
                          np.zeros((48, 64), np.uint8))
     assert torch.isfinite(state.x).all() and int(rec.total_matches) == 0
     patch = dataclasses.replace(
         TConfig(max_features=8),
         descriptor=dataclasses.replace(TConfig().descriptor, kind="PATCH"))
-    rt = tstep.SlamRuntime(patch, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        rt.step(rt.make_initial_state(), np.zeros((48, 64), np.uint8))
+    for cfg in (patch, dataclasses.replace(patch, matcher="ncc")):
+        rt = tstep.SlamRuntime(cfg, device="cpu")
+        state, rec = rt.step(rt.make_initial_state(),
+                             np.zeros((48, 64), np.uint8))
+        assert torch.isfinite(state.x).all()
+        assert state.descriptors.dtype == torch.float32
+        assert state.descriptors.shape == (8, 225)
     # the parity mode is ported: it builds on the CPU as on the card
     assert tstep.SlamRuntime(dataclasses.replace(TConfig(),
                                                  reference_quirks=True),

@@ -407,16 +407,32 @@ def test_brief_planes_for_every_brief_detector_use_the_shared_pattern():
         assert tf.brief_pattern.variant == "generic"
 
 
-def test_ncc_and_patch_name_their_roadmap_item():
-    cfg = _config(tcfg, "FAST", "PATCH")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tfront.Frontend(cfg, "cpu")
-    cfg = dataclasses.replace(cfg, matcher="ncc")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tfront.Frontend(cfg, "cpu")
-    cfg = dataclasses.replace(_config(tcfg, "FAST", "BRIEF"), matcher="ncc")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tfront.Frontend(cfg, "cpu")
+def test_ncc_and_patch_follow_the_jax_frontend():
+    """PATCH descriptors (with either matcher) describe as the jitted JAX
+    front end does; the NCC matcher without them raises what JAX
+    raises."""
+    g = blocky(15, (120, 128))
+    yx = np.asarray([[20, 30], [60, 64], [100, 110]], np.int32)
+    for matcher in ("descriptor", "ncc"):
+        cfg = dataclasses.replace(_config(tcfg, "FAST", "PATCH"),
+                                  matcher=matcher)
+        jcf = dataclasses.replace(_config(jcfg, "FAST", "PATCH"),
+                                  matcher=matcher)
+        tf, jf = tfront.Frontend(cfg, "cpu"), jfront.Frontend(jcf)
+        got = tf.describe(tf.precompute(torch.as_tensor(g)),
+                          torch.as_tensor(yx))
+        want = jax.jit(lambda a, k: jf.describe(jf.precompute(a), k))(
+            jnp.asarray(g), jnp.asarray(yx))
+        assert got.dtype == torch.float32 and tf.desc_width == 225
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+    for mod, make in ((tcfg, lambda c: tfront.Frontend(c, "cpu")),
+                      (jcfg, jfront.Frontend)):
+        cfg = dataclasses.replace(_config(mod, "FAST", "BRIEF"),
+                                  matcher="ncc")
+        with pytest.raises(ValueError, match="requires descriptor kind "
+                           "'PATCH'"):
+            make(cfg)
 
 
 def test_descriptor_widths_match_the_jax_config():

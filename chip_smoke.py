@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only    # phases 1 and 2 alone
     python3 chip_smoke.py --profiles-only   # phases 1 and 8 alone
     python3 chip_smoke.py --engine-features-only   # phases 1 and 9-11
+    python3 chip_smoke.py --batch-only      # phases 1 and 12 alone
     python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
                                  # agreement at other scenes (phase 1 first)
 
@@ -130,6 +131,27 @@ Phases, each of which passes or raises (the script then exits non-zero):
               SlamEngine's bit for bit, a second session, a bad session
               and a bad frame answered with errors while the daemon keeps
               serving, and ms a step through the socket and in process.
+ 12. batch    B = 8 s3 streams through one step (parallel/batch_runner.py
+              on the card): stream b slides 1 + b % 3 px a frame over its
+              own texture (seed 5 + b), 101 frames, batched_init_recorded
+              then scan_batched_sequences with every launch counter set to
+              0 just before and read just after (each kernel's launches a
+              batched frame as a single-stream frame's, init only on
+              frames where a stream adds); at most 1 host sync a batched
+              frame (the gate's read); each stream against its own
+              single-stream run on the card (1e-4 m, masks on 95% of
+              frames); streams 0 and 7's live logs replayed in float64 on
+              the CPU (1e-4 m); tracking health per stream; stream 0 bit
+              for bit with stream 1's frames flipped; 10 batched frames
+              under torch.profiler; and stream-frames/s at B = 1, 4, 8 and
+              16 over 21 frames after 5 (the sweep up and down) beside the
+              single-stream step in the same call.
+
+Phase 2 also launches each main-path kernel (predict, measure and its
+quirks variant, the update's three launches, init (A) and (B), STAR by
+both routes, BRIEF by both variants) once over 8 streams' different
+inputs, checks it bit for bit against 8 single launches, and times that
+launch (CUDA graph): each row's ``batch8_ms``.
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
 (bit for bit) on a textured 640x480 frame and on an odd 483x645 one:
@@ -149,8 +171,10 @@ launches from its path: phase 5 for the six kernels of the s3 live path
 and for STAR's direct route and BRIEF's generic variant, which no shipped
 setting takes, phase 6 for the S-inverse, phase 7's engine for the
 measure kernel's quirks variant; the Cholesky solve has no path; the
-S-inverse's times and bound are on a kept frame's S of phase 6).  The
-last line is {"ok": true, "device": {...}}.  Details go to
+S-inverse's times and bound are on a kept frame's S of phase 6), with
+``launches_batch`` from phase 12's main run and ``batch8_ms`` from phase
+2 (null for the S-inverse and the Cholesky solve, which have no batched
+launch).  The last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -199,6 +223,7 @@ from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            measure_kernel, predict_kernel,
                                            sinv, spd_core, star_kernel,
                                            update_kernel)
+from openekfmonoslam_tpu_torch.parallel import batch_runner
 from openekfmonoslam_tpu_torch.serving import server as server_mod
 from openekfmonoslam_tpu_torch.vision import brief
 from openekfmonoslam_tpu_torch.vision import dog as dog_mod
@@ -413,6 +438,13 @@ SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
 UPDATE_KERNEL_NAMES = ("update_factor", "update_solve", "update_downdate")
 # ... of the add path (csrc/init.cu)
 ADD_KERNEL_NAMES = ("init_chain", "init_augment<true>", "init_augment<false>")
+# ... and the batched launches of phase 12 (one over B streams each)
+BATCH_KERNEL_NAMES = ("predict_kernel<4, true>",
+                      "measure_kernel_batched<false, true>",
+                      "update_factor_batched", "update_solve_batched",
+                      "update_downdate_batched", "init_chain_batched<true>",
+                      "init_augment_batched<true>", "star_tile_batched<true>",
+                      "brief_planes_s256_batched")
 
 
 def print_device(dev_ms: float, kernels_us: dict) -> None:
@@ -434,7 +466,8 @@ def kernel_device_us(averages, frames: int,
             continue
         for name in names:
             if (e.key.startswith(name + "(") or e.key == name
-                    or "::" + name + "(" in e.key):
+                    or "::" + name + "(" in e.key
+                    or " " + name + "(" in e.key):
                 out[name] = {"us_per_frame": e.device_time_total / frames,
                              "calls_per_frame": e.count / frames}
     return out
@@ -1072,6 +1105,7 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
             kernel=lambda fn=fn: fn(*argsl),
             plain=lambda: update_kernel.update_plain(*argsl))
     rows["sinv_spd336"]["checks"] = sinv_checks
+    check_batched_kernels(failures, rows, cfg, camera, frontend, dev)
     end_phase("kernels (checks)", failures)
 
     for name, row in rows.items():
@@ -1088,9 +1122,119 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
     return rows
 
 
+# ------------------------------------------------ batched launches
+
+BATCH = 8     # streams of phase 2's batched launches and of phase 12
+
+
+def batched_kernel_cases(cfg: SlamConfig, camera, frontend, dev) -> dict:
+    """{row: (one launch over BATCH stacked inputs, stream b's single
+    launch)} at the main path's shapes, on BATCH different inputs; each
+    callable returns a tuple of tensors (the batched one's with a leading
+    stream axis).  Stream 0 of the update uses no slot and stream 0 of the
+    augmentation has no valid candidate: they pass through while the
+    others change."""
+    rng = np.random.default_rng(12)
+    N, F, C = cfg.padded_state_dim, cfg.max_features, cfg.max_features
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def stack(arrays, **kw):
+        return torch.stack([torch.tensor(a, **kw) for a in arrays])
+
+    cases = {}
+    lin, ang = cfg.ekf.linear_accel_sd ** 2, cfg.ekf.angular_accel_sd ** 2
+    states = [_spd_state(rng, N) for _ in range(BATCH)]
+    P, x = (stack([s[k] for s in states], **f32) for k in (0, 1))
+    cases["predict"] = (
+        lambda: predict_kernel.predict_cuda(P, x, 1.0, lin, ang),
+        lambda b: predict_kernel.predict_cuda(P[b], x[b], 1.0, lin, ang))
+
+    scenes = [_measure_scene(rng, F) for _ in range(BATCH)]
+    feats, cam7 = (stack([s[k] for s in scenes], **f32) for k in (0, 3))
+    is_xyz, active = (stack([s[k] for s in scenes], device=dev)
+                      for k in (1, 2))
+    for name, quirks in (("measure", False), ("measure_quirks", True)):
+        cases[name] = (
+            lambda q=quirks: measure_kernel.measure_cuda(
+                camera, cam7, feats, is_xyz, active, q),
+            lambda b, q=quirks: measure_kernel.measure_cuda(
+                camera, cam7[b], feats[b], is_xyz[b], active[b], q))
+
+    pe = cfg.camera.pixel_error_x
+    probs = [_update_problem(rng, N, F, frac)
+             for frac in np.linspace(0.0, 0.9, BATCH)]
+    U = [stack([p[k] for p in probs], **f32) for k in range(6)]
+    U.append(stack([p[6] for p in probs], device=dev))
+    cases["update"] = (
+        lambda: update_kernel.joint_update_cuda(*U, pe)[:2],
+        lambda b: update_kernel.joint_update_cuda(*(u[b] for u in U),
+                                                  pe)[:2])
+
+    rho0 = cfg.ekf.init_inv_depth_rho
+    r_add = (cfg.camera.pixel_error_x ** 2, cfg.camera.pixel_error_y ** 2,
+             cfg.ekf.inverse_depth_rho_sd ** 2)
+    qs = rng.standard_normal((BATCH, 4))
+    c7 = stack([np.concatenate([rng.normal(0, 0.1, 3),
+                                q / np.linalg.norm(q)]) for q in qs], **f32)
+    cuv = stack([rng.uniform(20, 600, (C, 2)) for _ in range(BATCH)], **f32)
+    cases["init"] = (
+        lambda: init_kernel._chain_cuda(camera, c7, cuv, rho0, P, r_add),
+        lambda b: init_kernel._chain_cuda(camera, c7[b], cuv[b], rho0, P[b],
+                                          r_add))
+    ops = init_kernel._chain_cuda(camera, c7, cuv, rho0, P, r_add)[3]
+    placed = [augment_case(rng, C, F, valid, dup, dev) for valid, dup in
+              zip((0, 1, 16, 96, 12, 40, 7, 64),
+                  (False, False, False, False, True, False, False, True))]
+    slots, ok = (torch.stack([a[k] for a in placed]) for k in (0, 1))
+    cases["init_augment"] = (
+        lambda: (init_kernel.augment_cuda(P, ops, slots, ok),),
+        lambda b: (init_kernel.augment_cuda(P[b], ops[b], slots[b], ok[b]),))
+
+    h, w = LIVE_HW
+    s_set, pattern = frontend.star, frontend.brief_pattern
+    grays = [torch.tensor(blob_texture(rng, h, w), device=dev)
+             for _ in range(BATCH)]
+    ii = torch.stack([star._integral(g, star.integral_pad(s_set.max_size))
+                      for g in grays])
+    smoothed = torch.stack([brief.smooth(g, cfg.descriptor.blur_sigma)
+                            for g in grays])
+    for name, route in (("star", "staged"), ("star_direct", "direct")):
+        cases[name] = (
+            lambda r=route: star_kernel.star_cuda(ii, h, w, s_set, r),
+            lambda b, r=route: star_kernel.star_cuda(ii[b], h, w, s_set, r))
+    wide = wide_pattern(frontend, dev)
+    for name, pat, variant in (("brief", pattern, "s256"),
+                               ("brief_generic", wide, "generic")):
+        cases[name] = (
+            lambda pat=pat, v=variant: (
+                brief_kernel.dense_planes_cuda(smoothed, pat, v),),
+            lambda b, pat=pat, v=variant: (torch.stack(
+                brief_kernel.dense_planes_cuda(smoothed[b], pat, v)),))
+    return cases
+
+
+def check_batched_kernels(failures, rows: dict, cfg: SlamConfig, camera,
+                          frontend, dev) -> None:
+    """Each main-path kernel's launch over BATCH streams against BATCH
+    single launches on the same inputs, bit for bit; puts the batched
+    launch on its row (``batch8``) for time_row."""
+    for name, (batched_fn, single_fn) in batched_kernel_cases(
+            cfg, camera, frontend, dev).items():
+        got = batched_fn()
+        same = all(torch.equal(g[b], s)
+                   for b in range(BATCH)
+                   for g, s in zip(got, single_fn(b)))
+        check(failures, same and got[0].shape[0] == BATCH,
+              f"{name}: one launch over {BATCH} streams bit-identical to "
+              f"{BATCH} single launches ({len(got)} outputs)")
+        rows[name]["batch8"] = batched_fn
+
+
 def time_row(name: str, row: dict) -> None:
     """A kernel row's device time (CUDA graph), eager time, plain and
-    library times and bound, in place; drops its callables."""
+    library times and bound, in place; drops its callables.  A row with a
+    batched launch also gets its time over BATCH streams (CUDA graph)."""
+    batch8 = row.pop("batch8", None)
     row["ms"] = graph_ms(row["kernel"])
     row["eager_ms"] = events_ms(row["kernel"], EAGER_REPS)
     row["plain_ms"] = events_ms(row["plain"], PLAIN_REPS)
@@ -1098,6 +1242,8 @@ def time_row(name: str, row: dict) -> None:
     row["library_ms"] = (events_ms(library, EAGER_REPS)
                          if library is not None else None)
     row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"])
+    # after the single launch's times, so the card runs them as before
+    row["batch8_ms"] = graph_ms(batch8) if batch8 is not None else None
     if row.pop("split", False):
         row["split_us"] = device_split_us(row["kernel"])
         print(f"  {name} by kernel under the profiler (device us a call): "
@@ -1105,6 +1251,10 @@ def time_row(name: str, row: dict) -> None:
               flush=True)
     lib = ("" if row["library_ms"] is None
            else f", library {row['library_ms'] * 1e3:.2f} us")
+    if row["batch8_ms"] is not None:
+        lib += (f"; {BATCH} streams in one launch "
+                f"{row['batch8_ms'] * 1e3:.2f} us "
+                f"({row['batch8_ms'] * 1e3 / BATCH:.2f} us a stream)")
     print(f"  {name}: {row['ms'] * 1e3:.2f} us/launch on the device "
           f"(eager {row['eager_ms'] * 1e3:.2f} us), plain "
           f"{row['plain_ms'] * 1e3:.2f} us{lib}, bound "
@@ -1567,12 +1717,14 @@ def replay_margin(cfg: SlamConfig, seeds: list, T: int = T_FRAMES,
 
 # ----------------------------------------------------------------- phase 5
 
-def live_frames(T: int, hw=LIVE_HW, seed: int = 5) -> np.ndarray:
-    """(T, H, W) uint8: a window sliding 2 px a frame over a blob texture
-    (io/sources.py SlidingWindowSource), an image-space pan."""
+def live_frames(T: int, hw=LIVE_HW, seed: int = 5,
+                step: int = 2) -> np.ndarray:
+    """(T, H, W) uint8: a window sliding ``step`` px a frame over a blob
+    texture (io/sources.py SlidingWindowSource), an image-space pan."""
     h, w = hw
-    still = blob_texture(np.random.default_rng(seed), h, w + 2 * T)
-    return np.stack(list(SlidingWindowSource(still, (h, w), step_xy=(2, 0),
+    still = blob_texture(np.random.default_rng(seed), h, w + step * T)
+    return np.stack(list(SlidingWindowSource(still, (h, w),
+                                             step_xy=(step, 0),
                                              n_frames=T)))
 
 
@@ -2997,6 +3149,282 @@ def phase_engine_features(live_cfg: SlamConfig) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+T_BATCH = 101                 # frames of phase 12's main run: init + 100
+BATCH_SWEEP = (1, 4, 8, 16)   # streams of the frames/s sweep
+SWEEP_WARM, SWEEP_TIMED = 5, 21
+BATCH_PROFILED = 10           # batched frames under the profiler
+BATCH_REPLAYED = (0, BATCH - 1)   # streams whose live logs replay in f64
+# each kernel's launches a frame on the s3 live path, at any B
+PER_FRAME = {"predict": 1, "measure": 2, "update": 2, "star": 1, "brief": 1}
+
+
+def batch_frames(B: int, T: int, hw=LIVE_HW) -> np.ndarray:
+    """(B, T, H, W) uint8: stream b slides 1 + b % 3 px a frame over its
+    own blob texture (seed 5 + b), so the streams add features on
+    different frames."""
+    return np.stack([live_frames(T, hw, seed=5 + b, step=1 + b % 3)
+                     for b in range(B)])
+
+
+def to_numpy(recs) -> step_mod.StepRecord:
+    return step_mod.StepRecord(*(f.cpu().numpy() for f in recs))
+
+
+def stream_log(uv0, ok0, slot0, recs, b: int) -> dict:
+    """Stream b's injection log (eval/replay.py's format) from the batched
+    init's bootstrap features and the batched records (T, B, ...)."""
+    log = {"init": [(uv0[b][i], int(slot0[b][i]))
+                    for i in range(ok0.shape[1]) if ok0[b][i]],
+           "frames": []}
+    for t in range(recs.z.shape[0]):
+        log["frames"].append({
+            "z": recs.z[t, b].astype(np.float64),
+            "matched": recs.matched[t, b].copy(),
+            "new": [(recs.new_uv[t, b, c], int(recs.new_slot[t, b, c]))
+                    for c in range(recs.new_ok.shape[2])
+                    if recs.new_ok[t, b, c]]})
+    return log
+
+
+def check_batch_launches(failures, tag: str, launches: dict, steps: int,
+                         inits: int) -> None:
+    """Each kernel of the s3 live path launched PER_FRAME times a batched
+    step (plus once for each of ``inits`` batched inits, STAR and BRIEF),
+    and nothing else; init (A) and (B) together, at most once a frame."""
+    want = {k: v * steps + (inits if k in ("star", "brief") else 0)
+            for k, v in PER_FRAME.items()}
+    check(failures, all(launches[k] == v for k, v in want.items()),
+          f"{tag}: launches {want} (a batched frame: {PER_FRAME})")
+    others = ("measure_quirks", "star_direct", "brief_generic", "sinv",
+              "cholsolve")
+    check(failures, all(launches[k] == 0 for k in others)
+          and launches["init"] == launches["init_augment"]
+          and launches["init"] <= steps + inits,
+          f"{tag}: init {launches['init']} = init_augment "
+          f"{launches['init_augment']} <= {steps + inits}, none of {others}")
+
+
+def batch_sweep(failures, runtime: SlamRuntime) -> dict:
+    """Aggregate stream-frames/s of batched_step at each of BATCH_SWEEP
+    over SWEEP_TIMED frames after SWEEP_WARM, twice (the sweep up, then
+    down), beside the single-stream step over stream 0's same frames
+    (before and after), and the launches a batched frame at each B."""
+    T = 1 + SWEEP_WARM + SWEEP_TIMED
+    gpu = runtime._tensor(batch_frames(max(BATCH_SWEEP), T))
+    sync = torch.cuda.synchronize
+
+    def single() -> float:
+        st = runtime.init_step(runtime.make_initial_state(), gpu[0, 0])
+        st, _ = scan_runner.scan_frames(runtime, st, gpu[0, 1:1 + SWEEP_WARM])
+        sync()
+        t0 = time.perf_counter()
+        scan_runner.scan_frames(runtime, st, gpu[0, 1 + SWEEP_WARM:])
+        sync()
+        return SWEEP_TIMED / (time.perf_counter() - t0)
+
+    out = {"single_fps_before": single()}
+    for B in BATCH_SWEEP + BATCH_SWEEP[::-1]:
+        st = batch_runner.make_batch_states(runtime, B, seeds=range(B))
+        st = batch_runner.make_batched_init(runtime)(st, gpu[:B, 0])
+        st, _ = batch_runner.scan_batched_sequences(
+            runtime, st, gpu[:B, 1:1 + SWEEP_WARM])
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        batch_runner.scan_batched_sequences(runtime, st,
+                                            gpu[:B, 1 + SWEEP_WARM:])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        check_batch_launches(failures, f"sweep B = {B}", launches,
+                             SWEEP_TIMED, 0)
+        row = out.setdefault(B, dict(stream_fps_runs=[], launches_per_frame={
+            k: v / SWEEP_TIMED for k, v in launches.items() if v}))
+        row["stream_fps_runs"].append(B * SWEEP_TIMED / seconds)
+    out["single_fps_after"] = single()
+    single_fps = 0.5 * (out["single_fps_before"] + out["single_fps_after"])
+    for B in BATCH_SWEEP:
+        row = out[B]
+        row["stream_fps"] = float(np.mean(row["stream_fps_runs"]))
+        row["x_single"] = row["stream_fps"] / single_fps
+    print(f"  frames/s over {SWEEP_TIMED} frames after {SWEEP_WARM}: single"
+          f"-stream step {out['single_fps_before']:.2f} (before), "
+          f"{out['single_fps_after']:.2f} (after); "
+          + "; ".join(f"B = {B}: " + ", ".join(
+              f"{v:.2f}" for v in out[B]["stream_fps_runs"])
+              + f" stream-frames/s ({out[B]['x_single']:.2f}x the single "
+              "stream)" for B in BATCH_SWEEP), flush=True)
+    return out
+
+
+def phase_batch(cfg: SlamConfig, failures: list) -> dict:
+    print("== phase 12: batch", flush=True)
+    runtime = SlamRuntime(cfg)
+    S = T_BATCH - 1
+    gpu = runtime._tensor(batch_frames(BATCH, T_BATCH))
+    print(f"  {BATCH} streams of {T_BATCH} frames at {LIVE_HW[1]}x"
+          f"{LIVE_HW[0]}, stream b sliding 1 + b % 3 px a frame over its own"
+          f" texture; {cfg.detector.kind} + {cfg.descriptor.kind}-"
+          f"{cfg.descriptor.n_bits}, F = {cfg.max_features}", flush=True)
+
+    # warm-up off the clock: first calls, the custom ops' registration
+    st = batch_runner.make_batch_states(runtime, BATCH)
+    st = batch_runner.make_batched_init(runtime)(st, gpu[:, 0])
+    batch_runner.scan_batched_sequences(runtime, st, gpu[:, 1:6])
+    torch.cuda.synchronize()
+
+    # the main path: every launch counter at 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    states = batch_runner.make_batch_states(runtime, BATCH,
+                                            seeds=range(BATCH))
+    states, uv0, ok0, slot0 = batch_runner.batched_init_recorded(
+        runtime, states, gpu[:, 0])
+    states, recs = batch_runner.scan_batched_sequences(runtime, states,
+                                                       gpu[:, 1:])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    recs = to_numpy(recs)
+    uv0, ok0, slot0 = (a.cpu().numpy() for a in (uv0, ok0, slot0))
+    add_frames = int(recs.new_ok.any(axis=(1, 2)).sum())
+    adds_by_stream = recs.new_ok.any(axis=2).sum(axis=0).tolist()
+    print(f"  main path: batched init + {S} batched steps in {elapsed:.4f} "
+          f"s = {BATCH * T_BATCH / elapsed:.2f} stream-frames/s; launches "
+          f"{launches}; frames with an addition: {add_frames} (by stream "
+          f"{adds_by_stream})", flush=True)
+    check_batch_launches(failures, "main path", launches, S, 1)
+    check(failures, launches["init"] >= 1 + add_frames,
+          f"init launched on the init and on each of the {add_frames} "
+          f"frames where a stream adds ({launches['init']})")
+    check(failures, len({tuple(np.nonzero(recs.new_ok.any(axis=2)[:, b])[0])
+                         for b in range(BATCH)}) > 1,
+          "the streams add features on different frames")
+    check(failures, bool(torch.isfinite(states.x).all())
+          and bool(torch.isfinite(states.P).all()), "final x and P finite")
+
+    # tracking health per stream
+    health = []
+    for b in range(BATCH):
+        matched = recs.total_matches[:, b].astype(np.int64)
+        inl = (recs.li_inliers[:, b] + recs.hi_inliers[:, b]).astype(np.int64)
+        health.append(dict(healthy=float(np.mean(inl >= 0.5 * matched)),
+                           mean_matched=float(matched.mean()),
+                           mean_inliers=float(inl.mean())))
+    check(failures, all(h["healthy"] >= 0.9 and h["mean_matched"] >= 20
+                        for h in health),
+          "tracking healthy on every stream (inliers >= half the matches on "
+          ">= 0.9 of frames, mean matched >= 20): "
+          + ", ".join(f"{h['healthy']:.3f}/{h['mean_matched']:.1f}"
+                      for h in health))
+
+    # host syncs a batched frame, from a state already on the card
+    st1 = batch_runner.make_batched_init(runtime)(
+        batch_runner.make_batch_states(runtime, BATCH), gpu[:, 0])
+    torch.cuda.synchronize()
+    n_sync = 20
+    sites, sync_s = count_syncs(lambda: batch_runner.scan_batched_sequences(
+        runtime, st1, gpu[:, 1:1 + n_sync]))
+    syncs = sum(sites.values())
+    allowed = {source_line(batch_runner, ".tolist()")}
+    print(f"  sync debug run: {n_sync / sync_s:.2f} batched steps/s, "
+          f"{syncs} host syncs ({syncs / n_sync:.3f} a batched frame): "
+          f"{dict(sites)}", flush=True)
+    check(failures, syncs / n_sync <= 1.0 and set(sites) <= allowed,
+          f"host syncs a batched frame {syncs / n_sync:.3f} <= 1, all at "
+          f"{sorted(allowed)}")
+
+    # each stream against its own single-stream run on the card
+    gaps, masks = [], []
+    for b in range(BATCH):
+        _, rb = scan_runner.run_sequence_on_device(runtime, gpu[b])
+        gaps.append(float(np.linalg.norm(
+            rb.x_cam[:, 0:3].astype(np.float64)
+            - recs.x_cam[:, b, 0:3], axis=1).max()))
+        masks.append(float(np.mean([
+            np.array_equal(rb.inliers[t], recs.inliers[t, b])
+            and np.array_equal(rb.visible[t], recs.visible[t, b])
+            for t in range(S)])))
+    print(f"  each stream vs its single-stream run on the card: position "
+          f"gap max {max(gaps):.3e} m (by stream "
+          + ", ".join(f"{g:.2e}" for g in gaps) + "); masks identical on "
+          + ", ".join(f"{m:.3f}" for m in masks) + " of frames", flush=True)
+    check(failures, max(gaps) <= LIVE_REPLAY_TOL
+          and min(masks) >= LIVE_MASKS_SAME,
+          f"every stream within {LIVE_REPLAY_TOL} m of its single-stream "
+          f"run (largest {max(gaps):.3e}), masks identical on >= "
+          f"{LIVE_MASKS_SAME} of frames (least {min(masks):.3f})")
+
+    # streams 0 and B - 1: their live logs replayed on the CPU in float64
+    rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                       device="cpu")
+    replays = {}
+    for b in BATCH_REPLAYED:
+        t0 = time.perf_counter()
+        _, recs64 = replay.replay_records(
+            rt64, stream_log(uv0, ok0, slot0, recs, b))
+        agree = against_float64(recs.x_cam[:, b], recs.inliers[:, b],
+                                recs.visible[:, b], recs64)
+        agree["cpu_s"] = time.perf_counter() - t0
+        replays[b] = agree
+        print(f"  stream {b}: float64 CPU replay of its live log "
+              f"{agree['cpu_s']:.1f} s: deviation max {agree['dev_max']:.3e}"
+              f" (frame {agree['worst_frame']}), final "
+              f"{agree['dev_final']:.3e}; inlier masks identical on "
+              f"{agree['inliers_same']:.3f} of frames, visibility on "
+              f"{agree['visible_same']:.3f}", flush=True)
+        check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL
+              and agree["inliers_same"] >= LIVE_MASKS_SAME
+              and agree["visible_same"] >= LIVE_MASKS_SAME,
+              f"stream {b}: float64 replay within {LIVE_REPLAY_TOL} m, masks "
+              f"identical on >= {LIVE_MASKS_SAME} of frames")
+
+    # streams are independent: stream 1's frames flipped, stream 0 the same
+    flipped = gpu[:, :6].clone()
+    flipped[1] = flipped[1].flip(-1)
+    finals = []
+    for seq in (gpu[:, :6], flipped):
+        st = batch_runner.make_batched_init(runtime)(
+            batch_runner.make_batch_states(runtime, BATCH), seq[:, 0])
+        st, _ = batch_runner.scan_batched_sequences(runtime, st, seq[:, 1:])
+        finals.append(st)
+    check(failures, torch.equal(finals[0].x[0], finals[1].x[0])
+          and torch.equal(finals[0].P[0], finals[1].P[0])
+          and not torch.equal(finals[0].x[1], finals[1].x[1]),
+          "stream 0's x and P bit-identical after 5 batched frames with "
+          "stream 1's frames flipped (stream 1's differ)")
+
+    # per-phase host and device ms under the profiler at B = BATCH
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batch_runner.scan_batched_sequences(
+            runtime, st1, gpu[:, 1:1 + BATCH_PROFILED])
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    phase_ms = phase_times(averages, BATCH_PROFILED, LIVE_PHASE_PREFIX)
+    kernels_us = kernel_device_us(averages, BATCH_PROFILED,
+                                  BATCH_KERNEL_NAMES)
+    dev_ms = device_ms(averages, BATCH_PROFILED)
+    print(f"  per-phase ms a batched frame of {BATCH} streams under the "
+          "profiler (host, device of PyTorch's kernels): "
+          + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
+                      for k, v in phase_ms.items()), flush=True)
+    print_device(dev_ms, kernels_us)
+
+    sweep = batch_sweep(failures, runtime)
+    return dict(B=BATCH, frames=T_BATCH, launches=launches,
+                elapsed_s=elapsed,
+                stream_fps=BATCH * T_BATCH / elapsed, add_frames=add_frames,
+                adds_by_stream=adds_by_stream, health=health,
+                syncs=syncs, syncs_per_frame=syncs / n_sync,
+                sync_sites=dict(sites), single_gap_m=gaps,
+                single_masks_same=masks, replays=replays,
+                phase_ms=phase_ms, kernels_us=kernels_us, device_ms=dev_ms,
+                sweep=sweep)
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3035,6 +3463,16 @@ def main(argv: list) -> int:
         OUT.mkdir(exist_ok=True)
         (OUT / "profiles.json").write_text(json.dumps(profiles, indent=1))
         print(f"profiles only: {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        return 0
+    if "--batch-only" in argv:
+        # phases 1 and 12 alone: B streams through one step; no result line
+        failures = []
+        batch = phase_batch(live_cfg, failures)
+        end_phase("batch", failures)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "batch.json").write_text(json.dumps(batch, indent=1))
+        print(f"batch only: {time.perf_counter() - T_START:.1f} s",
               flush=True)
         return 0
     if "--engine-features-only" in argv:
@@ -3078,6 +3516,9 @@ def main(argv: list) -> int:
     profiles = phase_profiles(failures)
     end_phase("profiles", failures)
     features = phase_engine_features(live_cfg)
+    failures = []
+    batch = phase_batch(live_cfg, failures)
+    end_phase("batch", failures)
 
     T = T_FRAMES
     # each kernel's launches come from the path that runs it: the s3 live
@@ -3115,7 +3556,12 @@ def main(argv: list) -> int:
                                   for k, v in profiles.items()},
             "launches_ncc": features["ncc"]["launches"][name],
             "launches_loop_closure": features["loop closure"]["launches"][
-                name]})
+                name],
+            # phase 12: B = 8 streams through one batched step; the row's
+            # one launch over 8 streams (phase 2, CUDA graph; null where
+            # the kernel has no batched launch)
+            "launches_batch": batch["launches"][name],
+            "batch8_ms": row["batch8_ms"]})
     extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
              "cholsolve_336x1024", "brief_generic_256", "predict_n1024",
              "floor")
@@ -3133,7 +3579,7 @@ def main(argv: list) -> int:
                   other_rows={k: rows[k] for k in extra},
                   cholsolve_checks=rows["cholsolve"]["checks"],
                   parity=parity, profiles=profiles,
-                  engine_features=features,
+                  engine_features=features, batch=batch,
                   seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3157,6 +3603,14 @@ def main(argv: list) -> int:
           f"{lc['corrected_endpoint_err']:.4f} m; serve: "
           f"{sv['ms_per_frame_socket']:.3f} ms a step through the socket",
           flush=True)
+    sw = batch["sweep"]
+    print(f"batch: {BATCH} streams {batch['stream_fps']:.2f} stream-frames/s"
+          f" over {T_BATCH} frames, host syncs/batched frame "
+          f"{batch['syncs_per_frame']:.3f}; stream-frames/s "
+          + ", ".join(f"B = {B} {sw[B]['stream_fps']:.2f}"
+                      for B in BATCH_SWEEP)
+          + f" (single stream {sw['single_fps_before']:.2f}, "
+          f"{sw['single_fps_after']:.2f})", flush=True)
     print("profiles: " + "; ".join(
         f"{k} {v['fps']:.2f} frames/s over {v['frames']} frames, BRIEF "
         f"{v['launches']['brief'] / v['frames']:.2f} a frame"

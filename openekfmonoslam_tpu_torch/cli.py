@@ -37,6 +37,7 @@ _NOT_PORTED = {
 
 def build_source(spec: str, begin: int, end: int,
                  realtime_fps: float = 0.0):
+    from openekfmonoslam_tpu_torch.io import native_loader
     from openekfmonoslam_tpu_torch.io.sources import (
         CameraSource,
         FileSequenceOnDemandSource,
@@ -53,6 +54,11 @@ def build_source(spec: str, begin: int, end: int,
             # (FileSequenceOnDemandImageGenerator semantics)
             return FileSequenceOnDemandSource(spec, begin, end,
                                               frame_rate=realtime_fps)
+        if native_loader.available():
+            paths = native_loader.file_sequence_paths(spec, begin, end)
+            paths = [p for p in paths if os.path.exists(p)]
+            if paths:
+                return native_loader.NativeFrameLoader(paths)
         return FileSequenceSource(spec, begin, end)
     return VideoFileSource(spec)
 

@@ -134,10 +134,11 @@ brief_planes_s256(const float* __restrict__ img, int h, int w,
     brief_fixed<ShippedPattern>(img, h, w, out);
 }
 
-__global__ void __launch_bounds__(BR_THREADS)
-brief_planes_generic(const float* __restrict__ img, int h, int w, int half,
-                     int n_words, const __grid_constant__ BriefOffsets tab,
-                     int* __restrict__ out) {
+// The generic variant's work on one image (both entry points run it).
+__device__ __forceinline__ void
+brief_generic_body(const float* __restrict__ img, int h, int w, int half,
+                   int n_words, const BriefOffsets& tab,
+                   int* __restrict__ out) {
     extern __shared__ float tile[];
     const int tw = BR_TILE_W + 2 * half, th = BR_TILE_H + 2 * half;
     const int x0 = blockIdx.x * BR_TILE_W, y0 = blockIdx.y * BR_TILE_H;
@@ -169,44 +170,103 @@ brief_planes_generic(const float* __restrict__ img, int h, int w, int half,
     }
 }
 
-// img: (h, w) float32; out: (8, h - 32, w - 32) int32, the shipped pattern.
-EKF_EXPORT int ekf_brief(const float* img, int h, int w, int* out,
-                         cudaStream_t stream) {
+__global__ void __launch_bounds__(BR_THREADS)
+brief_planes_generic(const float* __restrict__ img, int h, int w, int half,
+                     int n_words, const __grid_constant__ BriefOffsets tab,
+                     int* __restrict__ out) {
+    brief_generic_body(img, h, w, half, n_words, tab, out);
+}
+
+// B streams' images and planes stacked: blockIdx.z is the stream, whose
+// blocks run exactly the single-stream variant on its own image.
+__global__ void __launch_bounds__(BR_THREADS)
+brief_planes_s256_batched(const float* __restrict__ img, int h, int w,
+                          int* __restrict__ out) {
+    constexpr int half = ShippedPattern::half;
+    const size_t s = blockIdx.z;
+    brief_fixed<ShippedPattern>(
+        img + s * h * w, h, w,
+        out + s * (ShippedPattern::n_bits / 32) * (h - 2 * half)
+                  * (w - 2 * half));
+}
+
+__global__ void __launch_bounds__(BR_THREADS)
+brief_planes_generic_batched(const float* __restrict__ img, int h, int w,
+                             int half, int n_words,
+                             const __grid_constant__ BriefOffsets tab,
+                             int* __restrict__ out) {
+    const size_t s = blockIdx.z;
+    brief_generic_body(img + s * h * w, h, w, half, n_words, tab,
+                       out + s * n_words * (h - 2 * half) * (w - 2 * half));
+}
+
+// img: (B, h, w) float32; out: (B, 8, h - 32, w - 32) int32, the shipped
+// pattern.  B = 1 launches the single-stream kernel, B > 1 one launch of
+// brief_planes_s256_batched.
+EKF_EXPORT int ekf_brief_batched(const float* img, int h, int w, int B,
+                                 int* out, cudaStream_t stream) {
     constexpr int half = ShippedPattern::half;
     const int ih = h - 2 * half, iw = w - 2 * half;
-    if (ih < 1 || iw < 1) return (int)cudaErrorInvalidValue;
+    if (ih < 1 || iw < 1 || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
     const dim3 grid((iw + BR_TILE_W - 1) / BR_TILE_W,
-                    (ih + BR_TILE_H - 1) / BR_TILE_H);
-    brief_planes_s256<<<grid, dim3(BR_TILE_W, BR_ROWS), 0, stream>>>(
-        img, h, w, out);
+                    (ih + BR_TILE_H - 1) / BR_TILE_H, B);
+    if (B > 1)
+        brief_planes_s256_batched<<<grid, dim3(BR_TILE_W, BR_ROWS), 0,
+                                    stream>>>(img, h, w, out);
+    else
+        brief_planes_s256<<<grid, dim3(BR_TILE_W, BR_ROWS), 0, stream>>>(
+            img, h, w, out);
     return ekf_last_error();
 }
 
-// img: (h, w) float32; offsets: host (n_bits, 2) int32 tile offsets
+EKF_EXPORT int ekf_brief(const float* img, int h, int w, int* out,
+                         cudaStream_t stream) {
+    return ekf_brief_batched(img, h, w, 1, out, stream);
+}
+
+// img: (B, h, w) float32; offsets: host (n_bits, 2) int32 tile offsets
 // (dy (BR_TILE_W + 2 half) + dx of each bit's two points, |dy|, |dx| <=
-// half); out: (n_bits / 32, h - 2 half, w - 2 half) int32.
-EKF_EXPORT int ekf_brief_generic(const float* img, int h, int w, int half,
-                                 const int* offsets, int n_bits, int* out,
-                                 cudaStream_t stream) {
+// half); out: (B, n_bits / 32, h - 2 half, w - 2 half) int32.  B > 1
+// takes one launch of brief_planes_generic_batched.
+EKF_EXPORT int ekf_brief_generic_batched(const float* img, int h, int w,
+                                         int half, const int* offsets,
+                                         int n_bits, int B, int* out,
+                                         cudaStream_t stream) {
     const int ih = h - 2 * half, iw = w - 2 * half;
     if (ih < 1 || iw < 1 || half < 0 || n_bits < 32 || n_bits % 32
-        || n_bits > BR_MAX_BITS)
+        || n_bits > BR_MAX_BITS || B < 1 || B > 65535)
         return (int)cudaErrorInvalidValue;
     BriefOffsets tab = {};
     for (int b = 0; b < 2 * n_bits; ++b) tab.off[b / 2][b % 2] = offsets[b];
     const size_t smem = (size_t)(BR_TILE_W + 2 * half)
                         * (BR_TILE_H + 2 * half) * sizeof(float);
-    static size_t granted = 48 * 1024;
-    if (smem > granted) {
+    // the single-stream kernel's limit, and the batched one's
+    static size_t granted[2] = {48 * 1024, 48 * 1024};
+    if (smem > granted[B > 1]) {
         const cudaError_t e = cudaFuncSetAttribute(
-            brief_planes_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            B > 1 ? (const void*)brief_planes_generic_batched
+                  : (const void*)brief_planes_generic,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
-        granted = smem;
+        granted[B > 1] = smem;
     }
     const dim3 grid((iw + BR_TILE_W - 1) / BR_TILE_W,
-                    (ih + BR_TILE_H - 1) / BR_TILE_H);
-    brief_planes_generic<<<grid, dim3(BR_TILE_W, BR_ROWS), smem, stream>>>(
-        img, h, w, half, n_bits / 32, tab, out);
+                    (ih + BR_TILE_H - 1) / BR_TILE_H, B);
+    if (B > 1)
+        brief_planes_generic_batched<<<grid, dim3(BR_TILE_W, BR_ROWS), smem,
+                                       stream>>>(img, h, w, half, n_bits / 32,
+                                                 tab, out);
+    else
+        brief_planes_generic<<<grid, dim3(BR_TILE_W, BR_ROWS), smem,
+                               stream>>>(img, h, w, half, n_bits / 32, tab,
+                                         out);
     return ekf_last_error();
+}
+
+EKF_EXPORT int ekf_brief_generic(const float* img, int h, int w, int half,
+                                 const int* offsets, int n_bits, int* out,
+                                 cudaStream_t stream) {
+    return ekf_brief_generic_batched(img, h, w, half, offsets, n_bits, 1, out,
+                                     stream);
 }

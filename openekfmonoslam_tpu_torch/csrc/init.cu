@@ -96,11 +96,14 @@ constexpr int MAX_N = 12288;            // the largest N taken (a launch
                                         // also checks its shared memory)
 
 // n floats from shared memory to global memory in 16-byte vectors (dst
-// and src 16-byte aligned), the tail as floats
+// and src 16-byte aligned), the tail as floats; all as floats without VEC
+// (a batched launch's later streams start off a 16-byte boundary when C
+// is odd)
+template <bool VEC>
 __device__ __forceinline__ void copy_out(float* __restrict__ dst,
                                          const float* __restrict__ src,
                                          int n) {
-    const int n4 = n / 4;
+    const int n4 = VEC ? n / 4 : 0;
     for (int k = threadIdx.x; k < n4; k += blockDim.x)
         reinterpret_cast<float4*>(dst)[k] =
             reinterpret_cast<const float4*>(src)[k];
@@ -142,12 +145,15 @@ __device__ __forceinline__ int ld_now(const uint8_t* p) {
     return v;
 }
 
-__global__ void __launch_bounds__(CHAIN_THREADS)
-init_chain(const float* __restrict__ cam7, const float* __restrict__ cand_uv,
-           const float* __restrict__ P, float* __restrict__ feats,
-           float* __restrict__ J1, float* __restrict__ J2,
-           float* __restrict__ ops, int C, int N, float rho0, float r0,
-           float r1, float r2, CamParams c) {
+// (A)'s work on one stream (both entry points below run it).
+template <bool VEC>
+__device__ __forceinline__ void
+init_chain_body(const float* __restrict__ cam7,
+                const float* __restrict__ cand_uv,
+                const float* __restrict__ P, float* __restrict__ feats,
+                float* __restrict__ J1, float* __restrict__ J2,
+                float* __restrict__ ops, int C, int N, float rho0, float r0,
+                float r1, float r2, CamParams c) {
     __shared__ float sR[3][3];
     __shared__ float sP77[7][7];
     __shared__ __align__(16) float sF[CAND * 6];
@@ -323,11 +329,40 @@ init_chain(const float* __restrict__ cam7, const float* __restrict__ cand_uv,
     }
     __syncthreads();
     EKF_MARK(2, 0.0f);
-    copy_out(feats + 6 * (long long)c0, sF, 6 * nc);
-    copy_out(J1 + 42 * (long long)c0, sJ1, 42 * nc);
-    copy_out(J2 + 18 * (long long)c0, sJ2, 18 * nc);
-    if (with_ops) copy_out(ops + OPS * (long long)c0, sO, OPS * nc);
+    copy_out<VEC>(feats + 6 * (long long)c0, sF, 6 * nc);
+    copy_out<VEC>(J1 + 42 * (long long)c0, sJ1, 42 * nc);
+    copy_out<VEC>(J2 + 18 * (long long)c0, sJ2, 18 * nc);
+    if (with_ops) copy_out<VEC>(ops + OPS * (long long)c0, sO, OPS * nc);
     EKF_MARK(3, 0.0f);
+}
+
+__global__ void __launch_bounds__(CHAIN_THREADS)
+init_chain(const float* __restrict__ cam7, const float* __restrict__ cand_uv,
+           const float* __restrict__ P, float* __restrict__ feats,
+           float* __restrict__ J1, float* __restrict__ J2,
+           float* __restrict__ ops, int C, int N, float rho0, float r0,
+           float r1, float r2, CamParams c) {
+    init_chain_body<true>(cam7, cand_uv, P, feats, J1, J2, ops, C, N, rho0,
+                          r0, r1, r2, c);
+}
+
+// B streams stacked: blockIdx.y is the stream, whose CTAs run exactly the
+// single-stream chain on its own candidates (its outputs' 16-byte vectors
+// only where every stream's start is aligned, VEC: C even).
+template <bool VEC>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+init_chain_batched(const float* __restrict__ cam7,
+                   const float* __restrict__ cand_uv,
+                   const float* __restrict__ P, float* __restrict__ feats,
+                   float* __restrict__ J1, float* __restrict__ J2,
+                   float* __restrict__ ops, int C, int N, float rho0,
+                   float r0, float r1, float r2, CamParams c) {
+    const long long s = blockIdx.y, sC = s * C;
+    init_chain_body<VEC>(cam7 + 7 * s, cand_uv + 2 * sC,
+                         P != nullptr ? P + s * N * N : nullptr,
+                         feats + 6 * sC, J1 + 42 * sC, J2 + 18 * sC,
+                         ops != nullptr ? ops + OPS * sC : nullptr, C, N,
+                         rho0, r0, r1, r2, c);
 }
 
 // 6 c + row at candidate c's dims of the map, if c is valid (atomicMax:
@@ -611,32 +646,76 @@ init_augment(const float* __restrict__ P, const float* __restrict__ ops,
                          blockIdx.x - copy_blocks, smem);
 }
 
+// B streams stacked: blockIdx.y is the stream, whose blocks run exactly
+// the single-stream roles on its own P, operands and slots.
+template <bool VEC>
+__global__ void __launch_bounds__(AUG_THREADS)
+init_augment_batched(const float* __restrict__ P,
+                     const float* __restrict__ ops,
+                     const int* __restrict__ slots,
+                     const uint8_t* __restrict__ ok, float* __restrict__ out,
+                     int N, int C, int copy_blocks) {
+    extern __shared__ int smem[];
+    const long long s = blockIdx.y, sP = s * N * N, sC = s * C;
+    if ((int)blockIdx.x < copy_blocks)
+        augment_copy<VEC>(P + sP, ops + OPS * sC, slots + sC, ok + sC,
+                          out + sP, N, C, smem);
+    else
+        augment_row<VEC>(P + sP, ops + OPS * sC, slots + sC, ok + sC,
+                         out + sP, N, C, blockIdx.x - copy_blocks, smem);
+}
+
 }  // namespace
 
 // feats (C, 6), J1 (C, 6, 7), J2 (C, 6, 3) for C >= 1 candidates; with P
 // (N, N) given, also ops (C, 88), the compact operands of
 // ekf_init_augment (P null: ops is not written).  Returns the launch's
 // cudaError_t, or 0.
+// B streams stacked (B > 1) take one launch of init_chain_batched.
+EKF_EXPORT int ekf_init_batched(const float* cam7, const float* cand_uv,
+                                const float* P, float* feats, float* J1,
+                                float* J2, float* ops, int C, int N, int B,
+                                float rho0, float r0, float r1, float r2,
+                                const CamParams* cam, void* stream) {
+    if (C < 1 || (P != nullptr && N < POSE) || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int ctas = (C + CAND - 1) / CAND;
+    if (B > 1 && C % 2 == 0)
+        init_chain_batched<true><<<dim3(ctas, B), CHAIN_THREADS, 0, st>>>(
+            cam7, cand_uv, P, feats, J1, J2, ops, C, N, rho0, r0, r1, r2,
+            *cam);
+    else if (B > 1)
+        init_chain_batched<false><<<dim3(ctas, B), CHAIN_THREADS, 0, st>>>(
+            cam7, cand_uv, P, feats, J1, J2, ops, C, N, rho0, r0, r1, r2,
+            *cam);
+    else
+        init_chain<<<ctas, CHAIN_THREADS, 0, st>>>(
+            cam7, cand_uv, P, feats, J1, J2, ops, C, N, rho0, r0, r1, r2,
+            *cam);
+    return ekf_last_error();
+}
+
+// One stream (tools/small_kernel_clocks.py calls this entry).
 EKF_EXPORT int ekf_init(const float* cam7, const float* cand_uv,
                         const float* P, float* feats, float* J1, float* J2,
                         float* ops, int C, int N, float rho0, float r0,
                         float r1, float r2, const CamParams* cam,
                         void* stream) {
-    if (C < 1 || (P != nullptr && N < POSE))
-        return (int)cudaErrorInvalidValue;
-    init_chain<<<(C + CAND - 1) / CAND, CHAIN_THREADS, 0,
-                 (cudaStream_t)stream>>>(cam7, cand_uv, P, feats, J1, J2,
-                                         ops, C, N, rho0, r0, r1, r2, *cam);
-    return ekf_last_error();
+    return ekf_init_batched(cam7, cand_uv, P, feats, J1, J2, ops, C, N, 1,
+                            rho0, r0, r1, r2, cam, stream);
 }
 
 // out (N, N) = P with the C candidates' rows and columns placed (slots
 // int32, ok one byte each, ops from ekf_init).  Returns the launch's
 // cudaError_t, or 0.
-EKF_EXPORT int ekf_init_augment(const float* P, const float* ops,
-                                const int* slots, const uint8_t* ok,
-                                float* out, int N, int C, void* stream) {
-    if (N < CAM_DIM || N > MAX_N || C < 1) return (int)cudaErrorInvalidValue;
+// B streams stacked (B > 1) take one launch of init_augment_batched.
+EKF_EXPORT int ekf_init_augment_batched(const float* P, const float* ops,
+                                        const int* slots, const uint8_t* ok,
+                                        float* out, int N, int C, int B,
+                                        void* stream) {
+    if (N < CAM_DIM || N > MAX_N || C < 1 || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
     const long long per_block = 4LL * AUG_THREADS * AUG_GROUPS;
     const int copy_blocks = (int)(((long long)N * N + per_block - 1)
                                   / per_block);
@@ -657,7 +736,9 @@ EKF_EXPORT int ekf_init_augment(const float* P, const float* ops,
                  &value, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)))
             return err;
         for (const void* fn : {(const void*)init_augment<true>,
-                               (const void*)init_augment<false>})
+                               (const void*)init_augment<false>,
+                               (const void*)init_augment_batched<true>,
+                               (const void*)init_augment_batched<false>})
             if ((err = (int)cudaFuncSetAttribute(
                      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, value)))
                 return err;
@@ -668,11 +749,26 @@ EKF_EXPORT int ekf_init_augment(const float* P, const float* ops,
                      && ((uintptr_t)out & 15) == 0;
     const int blocks = copy_blocks + FEAT_DIM * C;
     cudaStream_t st = (cudaStream_t)stream;
-    if (vec)
+    if (B > 1 && vec)
+        init_augment_batched<true><<<dim3(blocks, B), AUG_THREADS, smem,
+                                     st>>>(P, ops, slots, ok, out, N, C,
+                                           copy_blocks);
+    else if (B > 1)
+        init_augment_batched<false><<<dim3(blocks, B), AUG_THREADS, smem,
+                                      st>>>(P, ops, slots, ok, out, N, C,
+                                            copy_blocks);
+    else if (vec)
         init_augment<true><<<blocks, AUG_THREADS, smem, st>>>(
             P, ops, slots, ok, out, N, C, copy_blocks);
     else
         init_augment<false><<<blocks, AUG_THREADS, smem, st>>>(
             P, ops, slots, ok, out, N, C, copy_blocks);
     return ekf_last_error();
+}
+
+// One stream (tools/small_kernel_clocks.py calls this entry).
+EKF_EXPORT int ekf_init_augment(const float* P, const float* ops,
+                                const int* slots, const uint8_t* ok,
+                                float* out, int N, int C, void* stream) {
+    return ekf_init_augment_batched(P, ops, slots, ok, out, N, C, 1, stream);
 }

@@ -57,11 +57,14 @@ __device__ __forceinline__ float div_step(float a, float b) {
 }
 
 // n floats from shared memory to global memory in 16-byte vectors (dst
-// and src 16-byte aligned), the tail as floats
+// and src 16-byte aligned), the tail as floats; all as floats without VEC
+// (a batched launch's later streams start off a 16-byte boundary when F
+// is odd)
+template <bool VEC>
 __device__ __forceinline__ void copy_out(float* __restrict__ dst,
                                          const float* __restrict__ src,
                                          int n) {
-    const int n4 = n / 4;
+    const int n4 = VEC ? n / 4 : 0;
     for (int k = threadIdx.x; k < n4; k += blockDim.x)
         reinterpret_cast<float4*>(dst)[k] =
             reinterpret_cast<const float4*>(src)[k];
@@ -69,13 +72,14 @@ __device__ __forceinline__ void copy_out(float* __restrict__ dst,
         dst[k] = src[k];
 }
 
-template <bool QUIRKS>
-__global__ void __launch_bounds__(THREADS)
-measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
-               const uint8_t* __restrict__ is_xyz,
-               const uint8_t* __restrict__ active, float* __restrict__ uv_out,
-               float* __restrict__ hc_out, float* __restrict__ hf_out,
-               uint8_t* __restrict__ vis_out, int F, CamParams c) {
+// The kernel's work on one stream (both entry points below run it).
+template <bool QUIRKS, bool VEC>
+__device__ __forceinline__ void
+measure_body(const float* __restrict__ cam7, const float* __restrict__ feats,
+             const uint8_t* __restrict__ is_xyz,
+             const uint8_t* __restrict__ active, float* __restrict__ uv_out,
+             float* __restrict__ hc_out, float* __restrict__ hf_out,
+             uint8_t* __restrict__ vis_out, int F, CamParams c) {
     __shared__ float sRt[3][3];
     __shared__ float sR[3];
     // the block's outputs in their global layouts: Hc, Hf, uv
@@ -301,21 +305,71 @@ measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
 
     const int first = blockIdx.x * THREADS;
     const int n = min(THREADS, F - first);
-    copy_out(hc_out + 26 * (size_t)first, sHc, 26 * n);
-    copy_out(hf_out + 12 * (size_t)first, sHf, 12 * n);
-    copy_out(uv_out + 2 * (size_t)first, sUv, 2 * n);
+    copy_out<VEC>(hc_out + 26 * (size_t)first, sHc, 26 * n);
+    copy_out<VEC>(hf_out + 12 * (size_t)first, sHf, 12 * n);
+    copy_out<VEC>(uv_out + 2 * (size_t)first, sUv, 2 * n);
     EKF_MARK(4, 0.0f);
+}
+
+template <bool QUIRKS>
+__global__ void __launch_bounds__(THREADS)
+measure_kernel(const float* __restrict__ cam7, const float* __restrict__ feats,
+               const uint8_t* __restrict__ is_xyz,
+               const uint8_t* __restrict__ active, float* __restrict__ uv_out,
+               float* __restrict__ hc_out, float* __restrict__ hf_out,
+               uint8_t* __restrict__ vis_out, int F, CamParams c) {
+    measure_body<QUIRKS, true>(cam7, feats, is_xyz, active, uv_out, hc_out,
+                               hf_out, vis_out, F, c);
+}
+
+// B streams stacked: blockIdx.y is the stream, whose blocks run exactly the
+// single-stream body on its own slots (its outputs' 16-byte vectors only
+// where every stream's start is aligned, VEC).
+template <bool QUIRKS, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+measure_kernel_batched(const float* __restrict__ cam7,
+                       const float* __restrict__ feats,
+                       const uint8_t* __restrict__ is_xyz,
+                       const uint8_t* __restrict__ active,
+                       float* __restrict__ uv_out, float* __restrict__ hc_out,
+                       float* __restrict__ hf_out,
+                       uint8_t* __restrict__ vis_out, int F, CamParams c) {
+    const size_t s = blockIdx.y, sF = s * F;
+    measure_body<QUIRKS, VEC>(cam7 + 7 * s, feats + 6 * sF, is_xyz + sF,
+                              active + sF, uv_out + 2 * sF, hc_out + 26 * sF,
+                              hf_out + 12 * sF, vis_out + sF, F, c);
 }
 
 }  // namespace
 
 // ``quirks`` != 0 launches the QUIRKS instantiation.  uv, hc and hf must
-// be 16-byte aligned (fresh allocations are).
-EKF_EXPORT int ekf_measure(const float* cam7, const float* feats,
-                           const uint8_t* is_xyz, const uint8_t* active,
-                           float* uv, float* hc, float* hf, uint8_t* visible,
-                           int F, int quirks, const CamParams* cam,
-                           void* stream) {
+// be 16-byte aligned (fresh allocations are).  B streams stacked take one
+// launch of measure_kernel_batched; B = 1 the single-stream kernel.
+EKF_EXPORT int ekf_measure_batched(const float* cam7, const float* feats,
+                                   const uint8_t* is_xyz,
+                                   const uint8_t* active, float* uv,
+                                   float* hc, float* hf, uint8_t* visible,
+                                   int F, int B, int quirks,
+                                   const CamParams* cam, void* stream) {
+    if (F < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (B > 1) {
+        const dim3 grid((F + THREADS - 1) / THREADS, B);
+        const bool vec = F % 2 == 0;   // each stream's outputs 16-byte aligned
+        if (quirks && vec)
+            measure_kernel_batched<true, true><<<grid, THREADS, 0, st>>>(
+                cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
+        else if (quirks)
+            measure_kernel_batched<true, false><<<grid, THREADS, 0, st>>>(
+                cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
+        else if (vec)
+            measure_kernel_batched<false, true><<<grid, THREADS, 0, st>>>(
+                cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
+        else
+            measure_kernel_batched<false, false><<<grid, THREADS, 0, st>>>(
+                cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
+        return ekf_last_error();
+    }
     const int blocks = (F + THREADS - 1) / THREADS;
     if (quirks)
         measure_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
@@ -324,4 +378,14 @@ EKF_EXPORT int ekf_measure(const float* cam7, const float* feats,
         measure_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
             cam7, feats, is_xyz, active, uv, hc, hf, visible, F, *cam);
     return ekf_last_error();
+}
+
+// One stream (tools/small_kernel_clocks.py calls this entry).
+EKF_EXPORT int ekf_measure(const float* cam7, const float* feats,
+                           const uint8_t* is_xyz, const uint8_t* active,
+                           float* uv, float* hc, float* hf, uint8_t* visible,
+                           int F, int quirks, const CamParams* cam,
+                           void* stream) {
+    return ekf_measure_batched(cam7, feats, is_xyz, active, uv, hc, hf,
+                               visible, F, 1, quirks, cam, stream);
 }

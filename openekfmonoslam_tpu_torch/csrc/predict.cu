@@ -32,10 +32,12 @@
 //   the strips and the corner read as 16-byte vectors.  At most 85
 //   registers a thread keep three blocks on an SM, so that the large
 //   map's 266 blocks run in one wave.
-// Every sum runs k = 0..12 in order, one multiply-add a term, so the
-// outputs do not depend on which block or thread computes them.  EKF_MARK /
-// EKF_NOTE are the stage marks of tools/small_kernel_clocks.py (no code
-// otherwise).
+// ekf_predict_batched takes B streams stacked in one launch
+// (predict_kernel<VEC, true>, blockIdx.y the stream); each stream runs the
+// single-stream code.  Every sum runs k = 0..12 in order, one multiply-add
+// a term, so the outputs do not depend on which block or thread computes
+// them.  EKF_MARK / EKF_NOTE are the stage marks of
+// tools/small_kernel_clocks.py (no code otherwise).
 
 #include <type_traits>
 
@@ -213,11 +215,21 @@ struct Layout {
     unsigned copy_v;      // vectors in the copy region
 };
 
-template <int VEC>
+// BATCHED: B streams' P and x stacked, blockIdx.y the stream, whose
+// blocks run exactly the single-stream code on its own P and x (the
+// single-stream instantiation has no stream offset at all).
+template <int VEC, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 3)
 predict_kernel(const float* __restrict__ P, const float* __restrict__ x,
                float* __restrict__ P_out, float* __restrict__ x_out,
                Layout L, float dt, float lin, float ang) {
+    if constexpr (BATCHED) {
+        const size_t s = (size_t)blockIdx.y * L.N;
+        P += s * L.N;
+        P_out += s * L.N;
+        x += s;
+        x_out += s;
+    }
     constexpr int K = COPY_BYTES / (4 * VEC);
     using Vec = typename std::conditional<VEC == 4, float4, float>::type;
     const int N = L.N;
@@ -363,10 +375,14 @@ predict_kernel(const float* __restrict__ P, const float* __restrict__ x,
 
 }  // namespace
 
-EKF_EXPORT int ekf_predict(const float* P, const float* x, float* P_out,
-                           float* x_out, int N, float dt, float lin,
-                           float ang, void* stream) {
-    if (N < C13 || N > 46340)       // the copy's 32-bit vector index
+// B streams: P, P_out (B, N, N), x, x_out (B, N), one launch;
+// B = 1 launches the single-stream kernel.
+EKF_EXPORT int ekf_predict_batched(const float* P, const float* x,
+                                   float* P_out, float* x_out, int N, int B,
+                                   float dt, float lin, float ang,
+                                   void* stream) {
+    // 46340: the copy's 32-bit vector index
+    if (N < C13 || N > 46340 || B < 1 || B > 65535)
         return (int)cudaErrorInvalidValue;
     // 16-byte vectors when every row of P and P' starts 16-byte aligned
     const bool vec = N % 4 == 0 && N >= 16
@@ -382,11 +398,26 @@ EKF_EXPORT int ekf_predict(const float* P, const float* x, float* P_out,
     const unsigned per_block = THREADS * COPY_BYTES / (4 * per_vec);
     const int n_copy = (int)((L.copy_v + per_block - 1) / per_block);
     const int blocks = 1 + L.n_top + L.n_left + n_copy;
-    if (vec)
-        predict_kernel<4><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    cudaStream_t st = (cudaStream_t)stream;
+    if (B > 1 && vec)
+        predict_kernel<4, true><<<dim3(blocks, B), THREADS, 0, st>>>(
+            P, x, P_out, x_out, L, dt, lin, ang);
+    else if (B > 1)
+        predict_kernel<1, true><<<dim3(blocks, B), THREADS, 0, st>>>(
+            P, x, P_out, x_out, L, dt, lin, ang);
+    else if (vec)
+        predict_kernel<4, false><<<blocks, THREADS, 0, st>>>(
             P, x, P_out, x_out, L, dt, lin, ang);
     else
-        predict_kernel<1><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        predict_kernel<1, false><<<blocks, THREADS, 0, st>>>(
             P, x, P_out, x_out, L, dt, lin, ang);
     return ekf_last_error();
+}
+
+// One stream (tools/small_kernel_clocks.py calls this entry).
+EKF_EXPORT int ekf_predict(const float* P, const float* x, float* P_out,
+                           float* x_out, int N, float dt, float lin,
+                           float ang, void* stream) {
+    return ekf_predict_batched(P, x, P_out, x_out, N, 1, dt, lin, ang,
+                               stream);
 }

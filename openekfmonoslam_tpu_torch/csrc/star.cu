@@ -511,14 +511,28 @@ star_tile_direct(const float* __restrict__ ii,
     star_tile<false>(ii, p, raw, nms);
 }
 
-// ii: (h + 2 pad + 1, ii_w) integral image; raw, nms: (h, w) outputs;
-// staged: 1 for star_tile_staged, 0 for star_tile_direct.
-EKF_EXPORT int ekf_star(const float* ii, const StarParams* params,
-                        int staged, float* raw, float* nms,
-                        cudaStream_t stream) {
+// B streams' integral images and maps stacked: blockIdx.z is the stream,
+// whose blocks run exactly the single-stream tile on its own image.
+template <bool STAGED>
+__global__ void __launch_bounds__(STAR_THREADS)
+star_tile_batched(const float* __restrict__ ii,
+                  const __grid_constant__ StarParams p,
+                  float* __restrict__ raw, float* __restrict__ nms) {
+    const size_t s = blockIdx.z, map = (size_t)p.h * p.w;
+    star_tile<STAGED>(ii + s * (p.h + 2 * p.pad + 1) * p.ii_w, p,
+                      raw + s * map, nms + s * map);
+}
+
+// ii: (B, h + 2 pad + 1, ii_w) integral images; raw, nms: (B, h, w)
+// outputs; staged: 1 for star_tile_staged, 0 for star_tile_direct.  B = 1
+// launches the single-stream kernel, B > 1 star_tile_batched: one launch.
+EKF_EXPORT int ekf_star_batched(const float* ii, const StarParams* params,
+                                int staged, int B, float* raw, float* nms,
+                                cudaStream_t stream) {
     const StarParams p = *params;
     const int e = 3 + p.nms_radius, tw = STAR_FRAME_W - 2 * e;
-    if (p.nms_radius < 0 || tw < 1 || p.h < 1 || p.w < 1 || p.n_sizes < 1
+    if (B < 1 || B > 65535 || p.nms_radius < 0 || tw < 1 || p.h < 1
+        || p.w < 1 || p.n_sizes < 1
         || p.n_sizes > STAR_MAX_SIZES
         || p.pad != 2 * ladder(p.n_sizes - 1) + 1)
         return (int)cudaErrorInvalidValue;
@@ -531,19 +545,41 @@ EKF_EXPORT int ekf_star(const float* ii, const StarParams* params,
     const size_t smem = (plane + work) * sizeof(float);
     if (smem > STAR_SMEM_MAX || (staged && p.n_sizes > STAR_STAGED_SIZES))
         return (int)cudaErrorInvalidValue;
-    static size_t granted[2] = {48 * 1024, 48 * 1024};
-    if (smem > granted[staged != 0]) {
+    // the single-stream and the batched kernel of each route
+    static size_t granted[4] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+    const int k = (staged != 0) + 2 * (B > 1);
+    if (smem > granted[k]) {
+        const void* fns[4] = {(const void*)star_tile_direct,
+                              (const void*)star_tile_staged,
+                              (const void*)star_tile_batched<false>,
+                              (const void*)star_tile_batched<true>};
         const cudaError_t err = cudaFuncSetAttribute(
-            staged ? star_tile_staged : star_tile_direct,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
-        granted[staged != 0] = smem;
+        granted[k] = smem;
     }
     const dim3 grid((p.w + tw - 1) / tw,
                     (p.h + STAR_TILE_H - 1) / STAR_TILE_H);
+    if (B > 1) {
+        const dim3 grid_b(grid.x, grid.y, B);
+        if (staged)
+            star_tile_batched<true><<<grid_b, STAR_THREADS, smem, stream>>>(
+                ii, p, raw, nms);
+        else
+            star_tile_batched<false><<<grid_b, STAR_THREADS, smem, stream>>>(
+                ii, p, raw, nms);
+        return ekf_last_error();
+    }
     if (staged)
         star_tile_staged<<<grid, STAR_THREADS, smem, stream>>>(ii, p, raw, nms);
     else
         star_tile_direct<<<grid, STAR_THREADS, smem, stream>>>(ii, p, raw, nms);
     return ekf_last_error();
+}
+
+// One stream.
+EKF_EXPORT int ekf_star(const float* ii, const StarParams* params,
+                        int staged, float* raw, float* nms,
+                        cudaStream_t stream) {
+    return ekf_star_batched(ii, params, staged, 1, raw, nms, stream);
 }

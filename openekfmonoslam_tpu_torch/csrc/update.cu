@@ -77,17 +77,36 @@ update_factor(const float* __restrict__ Sfull, const uint8_t* __restrict__ use,
                             Sfull, pixel_error, L, Dinv, idx, nullptr, meta);
 }
 
+// A batched launch's operands: B streams' inputs and outputs stacked, the
+// scratch in B blocks of fs floats (L, Dinv, V, jq, Y at their
+// single-stream offsets) and of M + 2 ints (idx, meta).  blockIdx.y is the
+// stream; its CTAs run exactly the single-stream work on its own block.
+__global__ void __launch_bounds__(spd::FACTOR_THREADS)
+update_factor_batched(const float* __restrict__ Sfull,
+                      const uint8_t* __restrict__ use, float* L,
+                      float* __restrict__ Dinv, int* __restrict__ idx,
+                      int* __restrict__ meta, int M, float pixel_error,
+                      int smem_bytes, long long fs) {
+    extern __shared__ float4 smem4[];
+    const long long s = blockIdx.y, si = s * (M + 2);
+    const uint8_t* u = use + s * (M / 2);
+    spd::compact_and_factor((float*)smem4, smem_bytes,
+                            [&](int r) { return slot_used(u, r); }, M,
+                            Sfull + s * M * M, pixel_error, L + s * fs,
+                            Dinv + s * fs, idx + si, nullptr, meta + si);
+}
+
 // One CTA a slab of SLAB columns of HP_u, plus res_u: Y = L^-1 [HP_u | res_u]
 // by block rows of NB, V = Y[:, :SLAB], dx = V^T y, x' = x + dx.  The CTA
 // of columns 3:7 (the first, SLAB >= 7) renormalizes q and writes Jq.
-__global__ void __launch_bounds__(SOLVE_THREADS)
-update_solve(const float* __restrict__ x, const float* __restrict__ HP,
-             const float* __restrict__ uv, const float* __restrict__ z,
-             const float* __restrict__ L, const float* __restrict__ Dinv,
-             const int* __restrict__ idx, const int* __restrict__ meta,
-             float* __restrict__ V, float* __restrict__ x_out,
-             float* __restrict__ jq, float* __restrict__ Yglobal, int N,
-             int in_smem) {
+__device__ __forceinline__ void
+update_solve_body(const float* __restrict__ x, const float* __restrict__ HP,
+                  const float* __restrict__ uv, const float* __restrict__ z,
+                  const float* __restrict__ L, const float* __restrict__ Dinv,
+                  const int* __restrict__ idx, const int* __restrict__ meta,
+                  float* __restrict__ V, float* __restrict__ x_out,
+                  float* __restrict__ jq, float* __restrict__ Yglobal, int N,
+                  int in_smem) {
     extern __shared__ float smem[];
     __shared__ float s_dx[SLAB];
     __shared__ spd::SolveSmem sm;
@@ -163,6 +182,36 @@ update_solve(const float* __restrict__ x, const float* __restrict__ HP,
     }
 }
 
+__global__ void __launch_bounds__(SOLVE_THREADS)
+update_solve(const float* __restrict__ x, const float* __restrict__ HP,
+             const float* __restrict__ uv, const float* __restrict__ z,
+             const float* __restrict__ L, const float* __restrict__ Dinv,
+             const int* __restrict__ idx, const int* __restrict__ meta,
+             float* __restrict__ V, float* __restrict__ x_out,
+             float* __restrict__ jq, float* __restrict__ Yglobal, int N,
+             int in_smem) {
+    update_solve_body(x, HP, uv, z, L, Dinv, idx, meta, V, x_out, jq,
+                      Yglobal, N, in_smem);
+}
+
+__global__ void __launch_bounds__(SOLVE_THREADS)
+update_solve_batched(const float* __restrict__ x,
+                     const float* __restrict__ HP,
+                     const float* __restrict__ uv,
+                     const float* __restrict__ z,
+                     const float* __restrict__ L,
+                     const float* __restrict__ Dinv,
+                     const int* __restrict__ idx,
+                     const int* __restrict__ meta, float* __restrict__ V,
+                     float* __restrict__ x_out, float* __restrict__ jq,
+                     float* __restrict__ Yglobal, int N, int in_smem, int M,
+                     long long fs) {
+    const long long s = blockIdx.y, sf = s * fs, si = s * (M + 2);
+    update_solve_body(x + s * N, HP + s * M * N, uv + s * M, z + s * M,
+                      L + sf, Dinv + sf, idx + si, meta + si, V + sf,
+                      x_out + s * N, jq + sf, Yglobal + sf, N, in_smem);
+}
+
 // (Jq C Jq^T)[a][b] for the 4 x 4 corner C (row stride TS)
 __device__ __forceinline__ float corner(const float* C, const float* J,
                                         int a, int b) {
@@ -178,10 +227,11 @@ __device__ __forceinline__ float corner(const float* C, const float* J,
 // The upper-triangle tile (I, J), I <= J, of P' = 1/2 (P + P^T) - V^T V,
 // written to (I, J) and, transposed, to (J, I); the tiles of rows 0:64
 // apply Jq to rows and columns 3:7.  With Mu = 0, P is copied.
-__global__ void __launch_bounds__(DD_THREADS)
-update_downdate(const float* __restrict__ P, const float* __restrict__ V,
-                const float* __restrict__ jq, const int* __restrict__ meta,
-                float* __restrict__ P_out, int N) {
+__device__ __forceinline__ void
+update_downdate_body(const float* __restrict__ P, const float* __restrict__ V,
+                     const float* __restrict__ jq,
+                     const int* __restrict__ meta, float* __restrict__ P_out,
+                     int N) {
     __shared__ float Va[BK][TILE];
     __shared__ float Vb[BK][TILE];
     __shared__ float sT[TILE][TS];      // P(J, I) staged, then P'(I, J)
@@ -303,6 +353,25 @@ update_downdate(const float* __restrict__ P, const float* __restrict__ V,
     }
 }
 
+__global__ void __launch_bounds__(DD_THREADS)
+update_downdate(const float* __restrict__ P, const float* __restrict__ V,
+                const float* __restrict__ jq, const int* __restrict__ meta,
+                float* __restrict__ P_out, int N) {
+    update_downdate_body(P, V, jq, meta, P_out, N);
+}
+
+__global__ void __launch_bounds__(DD_THREADS)
+update_downdate_batched(const float* __restrict__ P,
+                        const float* __restrict__ V,
+                        const float* __restrict__ jq,
+                        const int* __restrict__ meta,
+                        float* __restrict__ P_out, int N, int M,
+                        long long fs) {
+    const long long s = blockIdx.y, sP = s * N * N;
+    update_downdate_body(P + sP, V + s * fs, jq + s * fs, meta + s * (M + 2),
+                         P_out + sP, N);
+}
+
 }  // namespace
 
 // Scratch (caller-owned): L tri(2F) floats, Dinv ceil(2F / 32) * 32 * 32
@@ -310,14 +379,47 @@ update_downdate(const float* __restrict__ P, const float* __restrict__ V,
 // floats, used only when a slab does not fit SOLVE_SMEM_MAX), idx 2F ints,
 // meta 2 ints (Mu, non-positive pivots).  Returns the first failing
 // launch's cudaError_t, or 0.
-EKF_EXPORT int ekf_update(const float* P, const float* x, const float* HP,
-                          const float* Sfull, const float* uv, const float* z,
-                          const uint8_t* use, float* P_out, float* x_out,
-                          float* L, float* Dinv, float* V, float* jq,
-                          float* Y, int* idx, int* meta, int N, int F,
-                          float pixel_error, void* stream) {
+//
+// B streams (B > 1): every operand stacked, the scratch in B blocks of fs
+// floats and of 2F + 2 ints, each stream's L ... meta at its blocks' starts
+// plus the single-stream offsets; the same three launches with a stream
+// axis in their grids.  B = 1 launches the single-stream kernels.
+EKF_EXPORT int ekf_update_batched(const float* P, const float* x,
+                                  const float* HP, const float* Sfull,
+                                  const float* uv, const float* z,
+                                  const uint8_t* use, float* P_out,
+                                  float* x_out, float* L, float* Dinv,
+                                  float* V, float* jq, float* Y, int* idx,
+                                  int* meta, int N, int F, int B,
+                                  long long fs, float pixel_error,
+                                  void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int M = 2 * F;
+    if (F < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+    if (B > 1) {
+        static int optin_b = 0;
+        int err = spd::raise_smem_limits((const void*)update_factor_batched,
+                                         (const void*)update_solve_batched,
+                                         SOLVE_SMEM_MAX, &optin_b);
+        if (err) return err;
+        const size_t fsmem = spd::factor_smem_bytes(M, optin_b);
+        update_factor_batched<<<dim3(1, B), spd::FACTOR_THREADS, fsmem,
+                                st>>>(Sfull, use, L, Dinv, idx, meta, M,
+                                      pixel_error, (int)fsmem, fs);
+        if ((err = ekf_last_error())) return err;
+        const size_t ysmem = (size_t)M * SW * sizeof(float);
+        const int in_smem = ysmem <= (size_t)SOLVE_SMEM_MAX;
+        update_solve_batched<<<dim3((N + SLAB - 1) / SLAB, B), SOLVE_THREADS,
+                               in_smem ? ysmem : 0, st>>>(
+            x, HP, uv, z, L, Dinv, idx, meta, V, x_out, jq, Y, N, in_smem, M,
+            fs);
+        if ((err = ekf_last_error())) return err;
+        const int tiles = (N + TILE - 1) / TILE;
+        update_downdate_batched<<<dim3(tiles * (tiles + 1) / 2, B),
+                                  DD_THREADS, 0, st>>>(P, V, jq, meta, P_out,
+                                                       N, M, fs);
+        return ekf_last_error();
+    }
     // the first call raises the factor's and the solve's dynamic shared
     // memory limits; later calls (possibly inside a CUDA graph capture)
     // only launch
@@ -342,4 +444,16 @@ EKF_EXPORT int ekf_update(const float* P, const float* x, const float* HP,
     update_downdate<<<tiles * (tiles + 1) / 2, DD_THREADS, 0, st>>>(
         P, V, jq, meta, P_out, N);
     return ekf_last_error();
+}
+
+// One stream (tools/small_kernel_clocks.py calls this entry).
+EKF_EXPORT int ekf_update(const float* P, const float* x, const float* HP,
+                          const float* Sfull, const float* uv, const float* z,
+                          const uint8_t* use, float* P_out, float* x_out,
+                          float* L, float* Dinv, float* V, float* jq,
+                          float* Y, int* idx, int* meta, int N, int F,
+                          float pixel_error, void* stream) {
+    return ekf_update_batched(P, x, HP, Sfull, uv, z, use, P_out, x_out, L,
+                              Dinv, V, jq, Y, idx, meta, N, F, 1, 0,
+                              pixel_error, stream);
 }

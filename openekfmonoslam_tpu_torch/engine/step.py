@@ -297,11 +297,12 @@ class SlamRuntime:
         return state, do_mm, needed
 
     def detect_candidates(self, state: SlamState, pred, aux, in_ellipse,
-                          n_iter: int):
+                          n_iter: int, limit: torch.Tensor | None = None):
         """New-feature detection, zone balancing and description away from
         the frame-start ellipses (DetectNewImageFeatures.cpp:323-419), with
-        ``n_iter`` zone picks.  Returns (uv (C, 2) float32, desc (C, W),
-        valid (C,))."""
+        ``n_iter`` zone picks, and at most ``limit`` (a 0-dim tensor, the
+        batched step's per-stream count) when given.  Returns (uv (C, 2)
+        float32, desc (C, W), valid (C,))."""
         cfg = self.config
         h, w = aux["score_nms"].shape
         out_mask = ~in_ellipse & self._border_mask((h, w))
@@ -312,7 +313,7 @@ class SlamRuntime:
         picked = detect.select_zone_balanced(
             kp2_xy, kps2.score, kps2.valid, pred.uv.to(torch.float32),
             pred.visible, n_iter, self.exclusion_radius, self.zones_in_a_row,
-            w, h, max_new=cfg.max_features)
+            w, h, max_new=cfg.max_features, limit=limit)
         new_desc = self.frontend.describe(aux, kps2.yx[picked.kp_index])
         return picked.uv, new_desc, picked.valid
 

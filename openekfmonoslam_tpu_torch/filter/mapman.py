@@ -17,6 +17,7 @@ import torch
 
 from openekfmonoslam_tpu_torch.core import quaternion as quat
 from openekfmonoslam_tpu_torch.filter import shardable
+from openekfmonoslam_tpu_torch.filter.predict import small_matmul
 from openekfmonoslam_tpu_torch.filter.state import (
     CAM_DIM,
     FEAT_DIM,
@@ -160,8 +161,9 @@ def _convert_slot(state: SlamState, slot: torch.Tensor) -> SlamState:
     zeros3 = torch.zeros((FEAT_DIM - 3, N), dtype=dtype, device=dev)
     new_rows = torch.cat([J @ rows6, zeros3], dim=0)
     new_cols = torch.cat([cols6 @ J.T, zeros3.T], dim=1)
-    new_block = torch.zeros((FEAT_DIM, FEAT_DIM), dtype=dtype, device=dev)
-    new_block[0:3, 0:3] = J @ P66 @ J.T
+    new_block = torch.nn.functional.pad(
+        small_matmul(small_matmul(J, P66), J.T),
+        (0, FEAT_DIM - 3, 0, FEAT_DIM - 3))
 
     P_new = shardable.place_rows(P, new_rows, off)
     P_new = shardable.place_cols(P_new, new_cols, off)

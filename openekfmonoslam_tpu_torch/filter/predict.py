@@ -21,6 +21,18 @@ from openekfmonoslam_tpu_torch.filter.state import CAM_DIM, SlamState
 from openekfmonoslam_tpu_torch.ops import predict_kernel
 
 
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a product of a few elements, as explicit products
+    summed in order of the inner index.  Elementwise ops round the same
+    under ``torch.func.vmap`` as in a loop over streams; a tiny matmul does
+    not (PyTorch's CPU ``bmm`` and ``mm`` take different small-matrix
+    kernels), and the batched step must equal the single-stream one."""
+    acc = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return acc
+
+
 def motion_model(cam13: torch.Tensor, dt: float) -> torch.Tensor:
     """13-dim camera state transition (predictState, StateAndCovariancePrediction.cpp:43-65)."""
     r, q, v, w = cam13[0:3], cam13[3:7], cam13[7:10], cam13[10:13]
@@ -58,7 +70,7 @@ def motion_jacobian(cam13: torch.Tensor, dt: float) -> torch.Tensor:
                      torch.stack([qx, qw, -qz, qy]),
                      torch.stack([qy, qz, qw, -qx]),
                      torch.stack([qz, -qy, qx, qw])])
-    dq_dw = (L @ dq2) * dt                                     # (4, 3)
+    dq_dw = small_matmul(L, dq2) * dt                          # (4, 3)
 
     aw, ax, ay, az = torch.cat([c[None], s * v_]).unbind()     # quat(w dt)
     Rr = torch.stack([torch.stack([aw, -ax, -ay, -az]),
@@ -66,14 +78,16 @@ def motion_jacobian(cam13: torch.Tensor, dt: float) -> torch.Tensor:
                       torch.stack([ay, -az, aw, ax]),
                       torch.stack([az, ay, -ax, aw])])
 
-    F = torch.zeros((CAM_DIM, CAM_DIM), dtype=dtype, device=dev)
-    F[0:3, 0:3] = eye3
-    F[0:3, 7:10] = eye3 * dt
-    F[3:7, 3:7] = Rr
-    F[3:7, 10:13] = dq_dw
-    F[7:10, 7:10] = eye3
-    F[10:13, 10:13] = eye3
-    return F
+    # the blocks joined, not written into a zero F: torch.func.vmap cannot
+    # write a stream's blocks into an unbatched tensor
+    def zeros(r, c):
+        return torch.zeros((r, c), dtype=dtype, device=dev)
+
+    return torch.cat([
+        torch.cat([eye3, zeros(3, 4), eye3 * dt, zeros(3, 3)], dim=1),
+        torch.cat([zeros(4, 3), Rr, zeros(4, 3), dq_dw], dim=1),
+        torch.cat([zeros(3, 7), eye3, zeros(3, 3)], dim=1),
+        torch.cat([zeros(3, 10), eye3], dim=1)])
 
 
 def predict(state: SlamState, config: SlamConfig, dt: float = 1.0

@@ -2,9 +2,11 @@
 
 In the JAX package these helpers express slice writes as predicate
 selects so that a row-sharded P is never gathered.  The port keeps one
-device and plain indexing, so each helper is a copy of P plus a slice
-write.  ``start`` may be a Python int or a 0-dim integer tensor (a slot
-offset computed on the device), which is indexed without a host sync.
+device and plain indexing: a slice write into a copy of P, or, for an
+offset computed on the device, ``index_copy`` (which ``torch.func.vmap``
+batches where an index write into a copy does not).  ``start`` may be a
+Python int or a 0-dim integer tensor (a slot offset computed on the
+device), which is indexed without a host sync.
 Every helper returns a new tensor; P itself is never written.
 """
 
@@ -22,31 +24,40 @@ def _index(start, k: int, device) -> torch.Tensor | slice:
 
 def place_rows(P: torch.Tensor, rows: torch.Tensor, start) -> torch.Tensor:
     """P with rows[start : start+k, :] <- ``rows`` (k, N)."""
+    idx = _index(start, rows.shape[0], P.device)
+    if not isinstance(idx, slice):
+        return P.index_copy(0, idx, rows)
     out = P.clone()
-    out[_index(start, rows.shape[0], P.device)] = rows
+    out[idx] = rows
     return out
 
 
 def place_cols(P: torch.Tensor, cols: torch.Tensor, start) -> torch.Tensor:
     """P with cols[:, start : start+k] <- ``cols`` (N, k)."""
+    idx = _index(start, cols.shape[1], P.device)
+    if not isinstance(idx, slice):
+        return P.index_copy(1, idx, cols)
     out = P.clone()
-    out[:, _index(start, cols.shape[1], P.device)] = cols
+    out[:, idx] = cols
     return out
 
 
 def place_block(P: torch.Tensor, blk: torch.Tensor, r0, c0) -> torch.Tensor:
     """P with the (k, k) block at (r0, c0) <- ``blk``."""
     k = blk.shape[0]
-    out = P.clone()
     ri = _index(r0, k, P.device)
     ci = _index(c0, k, P.device)
     if isinstance(ri, slice) and isinstance(ci, slice):
+        out = P.clone()
         out[ri, ci] = blk
-    else:
-        ri = torch.arange(P.shape[0], device=P.device)[ri]
-        ci = torch.arange(P.shape[1], device=P.device)[ci]
-        out[ri[:, None], ci[None, :]] = blk
-    return out
+        return out
+    # the rows through the block, with the block copied in, copied back
+    if isinstance(ri, slice):
+        ri = torch.arange(ri.start, ri.stop, device=P.device)
+    if isinstance(ci, slice):
+        ci = torch.arange(ci.start, ci.stop, device=P.device)
+    strip = torch.index_select(P, 0, ri).index_copy(1, ci, blk)
+    return P.index_copy(0, ri, strip)
 
 
 def select_rows(P: torch.Tensor, start, k: int) -> torch.Tensor:

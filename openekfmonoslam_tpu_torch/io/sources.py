@@ -15,7 +15,8 @@ grayscale numpy arrays; exhaustion signals end-of-stream.
                                still (SlidingWindowImageGenerator.cpp:65-81)
 
 PIL and cv2 are imported where a source reads a file or a device.  The
-JAX package's native loader (io/native_loader.py) is not ported.
+CLI reads a directory through the native loader (io/native_loader.py)
+where its shared library loads, and through FileSequenceSource otherwise.
 """
 
 from __future__ import annotations

@@ -31,6 +31,11 @@ The wrapper picks the variant from the pattern.
 (vision/brief.py ``dense_descriptors_shared``), a CUDA tensor launches the
 kernel or raises.
 
+B streams stacked on a leading axis take one launch (the stream is a
+grid index; each stream's bits are its single launch's), which the
+batched step (parallel/batch_runner.py) reaches under ``torch.func.vmap``
+through the wrapper's custom op (ops/batched.py).
+
 Regenerate the pattern header with
 
     python -m openekfmonoslam_tpu_torch.ops.brief_kernel
@@ -44,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 from openekfmonoslam_tpu_torch.vision import brief
 
 LAUNCHES = cuda_lib.LaunchCounter("brief")                 # s256 variant
@@ -148,18 +153,13 @@ def dense_planes_plain(smoothed: torch.Tensor, pattern: BriefPattern):
 def dense_planes_cuda(smoothed: torch.Tensor, pattern: BriefPattern,
                       variant: str | None = None):
     """The same planes from one launch of the CUDA kernel: the pattern's
-    own variant, or ``variant`` ("generic" takes any pattern)."""
-    smoothed = smoothed.contiguous()
+    own variant, or ``variant`` ("generic" takes any pattern).  B streams'
+    images stacked (B, h, w) give the planes stacked, (B, W8, ih, iw),
+    from the same one launch; one image gives the W8-tuple."""
     cuda_lib.check_cuda_inputs("brief", {
-        "smoothed": smoothed, "points": pattern.points_t,
+        "smoothed": smoothed.contiguous(), "points": pattern.points_t,
         "pairs": pattern.pairs_t})
     variant = variant or pattern.variant
-    h, w = smoothed.shape
-    half = pattern.half
-    ih, iw = h - 2 * half, w - 2 * half
-    if ih < 1 or iw < 1:
-        raise ValueError(f"brief: a {h}x{w} image has no interior at "
-                         f"half {half}")
     n_bits = pattern.pairs.shape[0]
     if variant == "s256" and pattern.variant != "s256":
         raise ValueError("brief: the s256 variant takes only the shipped "
@@ -167,26 +167,64 @@ def dense_planes_cuda(smoothed: torch.Tensor, pattern: BriefPattern,
     if variant not in ("s256", "generic") or n_bits > MAX_BITS:
         raise ValueError(f"brief: variant {variant!r} with {n_bits} bits "
                          f"(the generic variant takes up to {MAX_BITS})")
-    out = torch.empty((n_bits // 32, ih, iw), dtype=torch.int32,
+    out = _launch(smoothed, variant, pattern.half, pattern.tile_offsets)
+    return out if out.dim() == 4 else tuple(out.unbind(0))
+
+
+def _launch(smoothed: torch.Tensor, variant: str, half: int,
+            offsets: np.ndarray) -> torch.Tensor:
+    """(W8, ih, iw) planes of an (h, w) image, or (B, W8, ih, iw) of B
+    stacked images, from one launch of ``variant``; ``offsets`` are the
+    pattern's ``tile_offsets`` (read by the generic variant)."""
+    smoothed = smoothed.contiguous()
+    cuda_lib.check_cuda_inputs("brief", {"smoothed": smoothed})
+    lead = tuple(smoothed.shape[:-2])
+    h, w = smoothed.shape[-2:]
+    ih, iw = h - 2 * half, w - 2 * half
+    if len(lead) > 1 or ih < 1 or iw < 1:
+        raise ValueError(f"brief: a {tuple(smoothed.shape)} image has no "
+                         f"interior at half {half}")
+    B = lead[0] if lead else 1
+    n_bits = offsets.shape[0]
+    out = torch.empty(lead + (n_bits // 32, ih, iw), dtype=torch.int32,
                       device=smoothed.device)
     lib = cuda_lib.library()
     if variant == "s256":
-        lib.call("ekf_brief", smoothed.data_ptr(), h, w, out.data_ptr(),
-                 cuda_lib.stream_of(smoothed))
+        lib.call("ekf_brief_batched", smoothed.data_ptr(), h, w, B,
+                 out.data_ptr(), cuda_lib.stream_of(smoothed))
         LAUNCHES.hit()
     else:
-        lib.call("ekf_brief_generic", smoothed.data_ptr(), h, w, half,
-                 pattern.tile_offsets.ctypes.data, n_bits, out.data_ptr(),
+        offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+        lib.call("ekf_brief_generic_batched", smoothed.data_ptr(), h, w,
+                 half, offsets.ctypes.data, n_bits, B, out.data_ptr(),
                  cuda_lib.stream_of(smoothed))
         GENERIC_LAUNCHES.hit()
-    return tuple(out.unbind(0))
+    return out
+
+
+@functools.cache
+def _batched_op():
+    def brief_op(smoothed: torch.Tensor, variant: str, half: int,
+                 offsets: torch.Tensor) -> torch.Tensor:
+        return _launch(smoothed, variant, half, offsets.numpy())
+
+    def rule(info, in_dims, smoothed, variant, half, offsets):
+        (smoothed,) = batched.stacked(info.batch_size, in_dims[:1], smoothed)
+        return _launch(smoothed, variant, half, offsets.numpy()), 0
+
+    return batched.custom_op("brief", brief_op, rule)
 
 
 def dense_planes(smoothed: torch.Tensor, pattern: BriefPattern):
     """W8-tuple of (ih, iw) int32 bit-planes: plain version on the CPU, the
-    kernel on CUDA."""
+    kernel on CUDA (one launch for all streams under
+    ``torch.func.vmap``)."""
     if smoothed.device.type == "cpu":
         return dense_planes_plain(smoothed, pattern)
+    if batched.any_batched(smoothed):
+        return tuple(_batched_op()(
+            smoothed, pattern.variant, pattern.half,
+            torch.from_numpy(pattern.tile_offsets)).unbind(0))
     return dense_planes_cuda(smoothed, pattern)
 
 

@@ -47,9 +47,15 @@ class CamParams(ctypes.Structure):
 
     @classmethod
     def from_camera(cls, cam) -> "CamParams":
-        return cls(cam.fx, cam.fy, cam.cx, cam.cy, cam.k1, cam.k2, cam.dx,
-                   cam.dy, cam.tan_vision_x, cam.tan_vision_y,
-                   float(cam.pixels_x), float(cam.pixels_y))
+        return cls(*cls.values(cam))
+
+    @staticmethod
+    def values(cam) -> list[float]:
+        """The fields of a ``core.camera.Camera`` in this struct's order
+        (a batched kernel's custom op takes them as a float list)."""
+        return [float(v) for v in (
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.k1, cam.k2, cam.dx, cam.dy,
+            cam.tan_vision_x, cam.tan_vision_y, cam.pixels_x, cam.pixels_y)]
 
 
 STAR_MAX_SIZES = 14
@@ -84,6 +90,20 @@ _SIGNATURES = {
     "ekf_sinv": [_P] * 11 + [_I, _P],
     "ekf_cholsolve": [_P] * 8 + [_I, _I, _P],
     "ekf_noop": [_P],
+    # the same kernels over B streams stacked (the int after the sizes is
+    # B; ekf_update_batched's int64 is its scratch's floats a stream)
+    "ekf_predict_batched": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    "ekf_measure_batched": [_P] * 8 + [_I, _I, _I,
+                                       ctypes.POINTER(CamParams), _P],
+    "ekf_init_batched": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _F,
+                                    ctypes.POINTER(CamParams), _P],
+    "ekf_init_augment_batched": [_P] * 5 + [_I, _I, _I, _P],
+    "ekf_update_batched": [_P] * 16 + [_I, _I, _I, ctypes.c_longlong, _F,
+                                       _P],
+    "ekf_star_batched": [_P, ctypes.POINTER(StarParams), _I, _I, _P, _P,
+                         _P],
+    "ekf_brief_batched": [_P, _I, _I, _I, _P, _P],
+    "ekf_brief_generic_batched": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
 }
 
 

@@ -26,16 +26,22 @@ placement, with ``init_plain``), a CUDA float32 tensor launches (A) and
 (B), or raises.  ``init_chain`` is the chain alone, the counterpart of the
 TPU kernel: ``init_plain`` (the vmapped forward-mode Jacobian of
 filter/features.py init_feature) on the CPU, (A) on the card.
+
+B streams stacked on a leading axis take one launch of each (the stream is a
+grid index; each stream's bits are its single launch's), which the
+batched step (parallel/batch_runner.py) reaches under ``torch.func.vmap``
+through the wrapper's custom op (ops/batched.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from openekfmonoslam_tpu_torch.core.camera import Camera
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 
 # filter/state.py: the camera's 13 dims come first, then 6 a slot
 CAM_DIM, FEAT_DIM = 13, 6
@@ -69,11 +75,13 @@ def init_plain(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
     return feats, J1, J2
 
 
-def _chain_cuda(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
-                rho0: float, P: torch.Tensor | None = None,
+def _chain_cuda(camera: Camera | cuda_lib.CamParams, cam7: torch.Tensor,
+                cand_uv: torch.Tensor, rho0: float,
+                P: torch.Tensor | None = None,
                 r_add: tuple = (0.0, 0.0, 0.0)):
     """(feats, J1, J2, ops) from one launch of (A); ops (C, OPS) only with
-    P given (else None)."""
+    P given (else None).  B streams stacked (a leading B axis on every
+    input and output) take the same one launch."""
     cam7 = cam7.contiguous()
     cand_uv = cand_uv.contiguous()
     tensors = {"cam7": cam7, "cand_uv": cand_uv}
@@ -81,25 +89,27 @@ def _chain_cuda(camera: Camera, cam7: torch.Tensor, cand_uv: torch.Tensor,
         P = P.contiguous()
         tensors["P"] = P
     cuda_lib.check_cuda_inputs("init", tensors)
-    C = cand_uv.shape[0]
-    N = P.shape[0] if P is not None else 0
-    if (cam7.shape != (7,) or cand_uv.shape != (C, 2) or C < 1
-            or (P is not None and (P.shape != (N, N) or N < 7))):
+    lead = tuple(cam7.shape[:-1])
+    C = cand_uv.shape[-2]
+    N = P.shape[-1] if P is not None else 0
+    if (cam7.shape != lead + (7,) or cand_uv.shape != lead + (C, 2) or C < 1
+            or len(lead) > 1
+            or (P is not None and (P.shape != lead + (N, N) or N < 7))):
         raise ValueError("init: bad shapes")
-    dev = cand_uv.device
-    feats = torch.empty((C, 6), dtype=torch.float32, device=dev)
-    J1 = torch.empty((C, 6, 7), dtype=torch.float32, device=dev)
-    J2 = torch.empty((C, 6, 3), dtype=torch.float32, device=dev)
-    ops = (torch.empty((C, OPS), dtype=torch.float32, device=dev)
-           if P is not None else None)
-    cam = cuda_lib.CamParams.from_camera(camera)
+    f32 = dict(dtype=torch.float32, device=cand_uv.device)
+    feats = torch.empty(lead + (C, 6), **f32)
+    J1 = torch.empty(lead + (C, 6, 7), **f32)
+    J2 = torch.empty(lead + (C, 6, 3), **f32)
+    ops = torch.empty(lead + (C, OPS), **f32) if P is not None else None
+    cam = (camera if isinstance(camera, cuda_lib.CamParams)
+           else cuda_lib.CamParams.from_camera(camera))
     cuda_lib.library().call(
-        "ekf_init", cam7.data_ptr(), cand_uv.data_ptr(),
+        "ekf_init_batched", cam7.data_ptr(), cand_uv.data_ptr(),
         P.data_ptr() if P is not None else None, feats.data_ptr(),
         J1.data_ptr(), J2.data_ptr(),
-        ops.data_ptr() if ops is not None else None, C, N, float(rho0),
-        *(float(r) for r in r_add), ctypes.byref(cam),
-        cuda_lib.stream_of(cand_uv))
+        ops.data_ptr() if ops is not None else None, C, N,
+        lead[0] if lead else 1, float(rho0), *(float(r) for r in r_add),
+        ctypes.byref(cam), cuda_lib.stream_of(cand_uv))
     LAUNCHES.hit()
     return feats, J1, J2, ops
 
@@ -155,29 +165,37 @@ def augment_plain(P: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
     J2r = torch.stack([J2[..., k] * r_add[k] for k in range(3)], dim=-1)
     noise = torch.einsum("cik,cjk->cij", J2r, J2)            # (C, 6, 6)
 
-    # invalid candidates point at the extra column N, which is dropped
-    dim_idx = new_dims(slots, ok, N)
-    cross = cross * ok.to(dtype)[None, None, :, None]
-    rows = torch.cat([rows, torch.zeros((C, FEAT_DIM, 1), dtype=dtype,
-                                        device=dev)], dim=-1)
-    rows[:, :, dim_idx.reshape(-1)] = cross.reshape(C, FEAT_DIM,
-                                                   C * FEAT_DIM)
-    diag = torch.einsum("cik,cjk->cij", B, J1) + noise       # (C, 6, 6)
-    rows[torch.arange(C, device=dev)[:, None, None],
-         torch.arange(FEAT_DIM, device=dev)[None, :, None],
-         dim_idx[:, None, :]] = diag
-    rows = rows[..., :N]
-
-    # each state dim looks up which candidate row writes it (K = none)
-    flat_idx = dim_idx.reshape(-1)
+    # each state dim looks up which candidate row writes it: the highest
+    # valid candidate whose slot holds the dim (K = none).  Every placement
+    # below is a gather and a select, which torch.func.vmap batches.
     K = C * FEAT_DIM
-    idx_map = torch.full((N + 1,), K, dtype=torch.long, device=dev)
-    idx_map[flat_idx] = torch.arange(K, device=dev)
-    idx_map = idx_map[:N]
-    wrote = idx_map < K
+    n = torch.arange(N, device=dev)
+    col_slot = torch.div(n - CAM_DIM, FEAT_DIM, rounding_mode="floor")
+    col_j = n - CAM_DIM - FEAT_DIM * col_slot
+    cand = torch.arange(C, device=dev)
+    writes = ok[None, :] & (slots.to(torch.long)[None, :] == col_slot[:, None])
+    writer = torch.amax(torch.where(writes, cand[None, :],
+                                    torch.full_like(cand, -1)[None, :]),
+                        dim=1)                               # (N,)
+    wrote = writer >= 0
+    idx_map = torch.where(wrote, FEAT_DIM * writer + col_j,
+                          torch.full_like(writer, K))
+
+    # a candidate's rows: the cross blocks at the other candidates' dims,
+    # then its own diagonal block at its dims
+    cross = torch.index_select(cross.reshape(C, FEAT_DIM, K), 2,
+                               torch.clamp(idx_map, max=K - 1))
+    rows = torch.where(wrote[None, None, :], cross, rows)
+    diag = torch.einsum("cik,cjk->cij", B, J1) + noise       # (C, 6, 6)
+    own = n[None, :] - (CAM_DIM + FEAT_DIM * slots.to(torch.long)[:, None])
+    mine = ok[:, None] & (own >= 0) & (own < FEAT_DIM)       # (C, N)
+    diag = torch.gather(diag, 2, torch.clamp(own, 0, FEAT_DIM - 1)[
+        :, None, :].expand(C, FEAT_DIM, N))
+    rows = torch.where(mine[:, None, :], diag, rows)
+
     A_ext = torch.cat([rows.reshape(K, N),
                        torch.zeros((1, N), dtype=dtype, device=dev)], dim=0)
-    G = A_ext[idx_map]                                       # (N, N)
+    G = torch.index_select(A_ext, 0, idx_map)                # (N, N)
     Pn = torch.where(wrote[:, None], G, P)
     return torch.where(wrote[None, :], G.T, Pn)
 
@@ -185,19 +203,23 @@ def augment_plain(P: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
 def augment_cuda(P: torch.Tensor, ops: torch.Tensor, slots: torch.Tensor,
                  ok: torch.Tensor) -> torch.Tensor:
     """P_new from one launch of (B): P (N, N) float32, ops (C, OPS) from
-    (A), slots (C,) int32, ok (C,) bool."""
+    (A), slots (C,) int32, ok (C,) bool; or B streams stacked (a leading B
+    axis on each) in the same one launch."""
     P, ops, slots, ok = (t.contiguous() for t in (P, ops, slots, ok))
     cuda_lib.check_cuda_inputs("init_augment", {
         "P": P, "ops": ops, "slots": slots, "ok": ok})
-    N, C = P.shape[0], slots.shape[0]
-    if (P.shape != (N, N) or ops.shape != (C, OPS) or ok.shape != (C,)
-            or slots.dtype != torch.int32 or ok.dtype != torch.bool
-            or C < 1 or not CAM_DIM <= N <= MAX_N):
+    lead = tuple(P.shape[:-2])
+    N, C = P.shape[-1], slots.shape[-1]
+    if (P.shape != lead + (N, N) or ops.shape != lead + (C, OPS)
+            or ok.shape != lead + (C,) or slots.shape != lead + (C,)
+            or len(lead) > 1 or slots.dtype != torch.int32
+            or ok.dtype != torch.bool or C < 1 or not CAM_DIM <= N <= MAX_N):
         raise ValueError("init_augment: bad shapes or types")
     P_new = torch.empty_like(P)
     cuda_lib.library().call(
-        "ekf_init_augment", P.data_ptr(), ops.data_ptr(), slots.data_ptr(),
-        ok.data_ptr(), P_new.data_ptr(), N, C, cuda_lib.stream_of(P))
+        "ekf_init_augment_batched", P.data_ptr(), ops.data_ptr(),
+        slots.data_ptr(), ok.data_ptr(), P_new.data_ptr(), N, C,
+        lead[0] if lead else 1, cuda_lib.stream_of(P))
     AUGMENT_LAUNCHES.hit()
     return P_new
 
@@ -210,12 +232,47 @@ def add_covariance_cuda(camera: Camera, P: torch.Tensor, cam7: torch.Tensor,
     return feats, augment_cuda(P, ops, slots, ok)
 
 
+@functools.cache
+def _batched_ops():
+    """The custom ops of (A) with its compact operands and of (B)."""
+    def chain_op(cam: list[float], cam7: torch.Tensor, cand_uv: torch.Tensor,
+                 P: torch.Tensor, rho0: float, r_add: list[float]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        feats, _, _, ops = _chain_cuda(cuda_lib.CamParams(*cam), cam7,
+                                       cand_uv, rho0, P, tuple(r_add))
+        return feats, ops
+
+    def chain_rule(info, in_dims, cam, cam7, cand_uv, P, rho0, r_add):
+        cam7, cand_uv, P = batched.stacked(info.batch_size, in_dims[1:4],
+                                           cam7, cand_uv, P)
+        feats, _, _, ops = _chain_cuda(cuda_lib.CamParams(*cam), cam7,
+                                       cand_uv, rho0, P, tuple(r_add))
+        return (feats, ops), (0, 0)
+
+    def augment_op(P: torch.Tensor, ops: torch.Tensor, slots: torch.Tensor,
+                   ok: torch.Tensor) -> torch.Tensor:
+        return augment_cuda(P, ops, slots, ok)
+
+    def augment_rule(info, in_dims, P, ops, slots, ok):
+        return augment_cuda(*batched.stacked(info.batch_size, in_dims, P, ops,
+                                             slots, ok)), 0
+
+    return (batched.custom_op("init_chain", chain_op, chain_rule),
+            batched.custom_op("init_augment", augment_op, augment_rule))
+
+
 def add_covariance(camera: Camera, P: torch.Tensor, cam7: torch.Tensor,
                    cand_uv: torch.Tensor, slots: torch.Tensor,
                    ok: torch.Tensor, rho0: float, r_add: tuple):
-    """(feats, P_new): the plain version on the CPU, the kernels on CUDA."""
+    """(feats, P_new): the plain version on the CPU, the kernels on CUDA
+    (one launch of each for all streams under ``torch.func.vmap``)."""
     if P.device.type == "cpu":
         return add_covariance_plain(camera, P, cam7, cand_uv, slots, ok,
                                     rho0, r_add)
+    if batched.any_batched(P, cam7, cand_uv, slots, ok):
+        chain, augment = _batched_ops()
+        feats, ops = chain(cuda_lib.CamParams.values(camera), cam7, cand_uv,
+                           P, float(rho0), [float(r) for r in r_add])
+        return feats, augment(P, ops, slots, ok)
     return add_covariance_cuda(camera, P, cam7, cand_uv, slots, ok, rho0,
                                r_add)

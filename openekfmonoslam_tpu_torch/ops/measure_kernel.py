@@ -20,17 +20,23 @@ chain (csrc/measure.cu says how the design shortens it).
 ``measure`` is the wrapper: a CPU tensor runs ``measure_plain`` (the
 filter/measure_fast.py chain and the same masks), a CUDA tensor launches
 the kernel or raises.
+
+B streams stacked on a leading axis take one launch (the stream is a
+grid index; each stream's bits are its single launch's), which the
+batched step (parallel/batch_runner.py) reaches under ``torch.func.vmap``
+through the wrapper's custom op (ops/batched.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.filter.state import CAM_DIM, FEAT_DIM
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 
 LAUNCHES = cuda_lib.LaunchCounter("measure")
 QUIRKS_LAUNCHES = cuda_lib.LaunchCounter("measure_quirks")
@@ -61,37 +67,64 @@ def measure_plain(camera: Camera, cam7: torch.Tensor, feats: torch.Tensor,
     return uv, Hc, Hf, visible
 
 
-def measure_cuda(camera: Camera, cam7: torch.Tensor, feats: torch.Tensor,
-                 is_xyz: torch.Tensor, active: torch.Tensor,
-                 quirks: bool = False):
+def measure_cuda(camera: Camera | cuda_lib.CamParams, cam7: torch.Tensor,
+                 feats: torch.Tensor, is_xyz: torch.Tensor,
+                 active: torch.Tensor, quirks: bool = False):
     """The same four masked arrays from one launch of the CUDA kernel (its
-    QUIRKS instantiation with ``quirks``)."""
+    QUIRKS instantiation with ``quirks``); B streams stacked (a leading B
+    axis on every input and output) in the same one launch."""
     feats = feats.contiguous()
     cam7 = cam7.contiguous()
+    is_xyz, active = is_xyz.contiguous(), active.contiguous()
     cuda_lib.check_cuda_inputs("measure", {
         "cam7": cam7, "feats": feats, "is_xyz": is_xyz, "active": active})
-    F = feats.shape[0]
-    if cam7.shape != (7,) or feats.shape != (F, 6) or F < 1 \
-            or is_xyz.shape != (F,) or active.shape != (F,):
+    lead = tuple(cam7.shape[:-1])
+    F = feats.shape[-2]
+    if cam7.shape != lead + (7,) or feats.shape != lead + (F, 6) or F < 1 \
+            or is_xyz.shape != lead + (F,) or active.shape != lead + (F,) \
+            or len(lead) > 1:
         raise ValueError("measure: bad shapes")
-    uv = torch.empty((F, 2), dtype=torch.float32, device=feats.device)
-    Hc = torch.empty((F, 2, CAM_DIM), dtype=torch.float32,
-                     device=feats.device)
-    Hf = torch.empty((F, 2, 6), dtype=torch.float32, device=feats.device)
-    visible = torch.empty((F,), dtype=torch.bool, device=feats.device)
-    cam = cuda_lib.CamParams.from_camera(camera)
+    f32 = dict(dtype=torch.float32, device=feats.device)
+    uv = torch.empty(lead + (F, 2), **f32)
+    Hc = torch.empty(lead + (F, 2, CAM_DIM), **f32)
+    Hf = torch.empty(lead + (F, 2, 6), **f32)
+    visible = torch.empty(lead + (F,), dtype=torch.bool, device=feats.device)
+    cam = (camera if isinstance(camera, cuda_lib.CamParams)
+           else cuda_lib.CamParams.from_camera(camera))
     cuda_lib.library().call(
-        "ekf_measure", cam7.data_ptr(), feats.data_ptr(), is_xyz.data_ptr(),
-        active.data_ptr(), uv.data_ptr(), Hc.data_ptr(), Hf.data_ptr(),
-        visible.data_ptr(), F, int(quirks), ctypes.byref(cam),
-        cuda_lib.stream_of(feats))
+        "ekf_measure_batched", cam7.data_ptr(), feats.data_ptr(),
+        is_xyz.data_ptr(), active.data_ptr(), uv.data_ptr(), Hc.data_ptr(),
+        Hf.data_ptr(), visible.data_ptr(), F, lead[0] if lead else 1,
+        int(quirks), ctypes.byref(cam), cuda_lib.stream_of(feats))
     (QUIRKS_LAUNCHES if quirks else LAUNCHES).hit()
     return uv, Hc, Hf, visible
 
 
+@functools.cache
+def _batched_op():
+    def measure_op(cam: list[float], cam7: torch.Tensor, feats: torch.Tensor,
+                   is_xyz: torch.Tensor, active: torch.Tensor, quirks: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+        return measure_cuda(cuda_lib.CamParams(*cam), cam7, feats, is_xyz,
+                            active, quirks)
+
+    def rule(info, in_dims, cam, cam7, feats, is_xyz, active, quirks):
+        args = batched.stacked(info.batch_size, in_dims[1:5], cam7, feats,
+                               is_xyz, active)
+        return (measure_cuda(cuda_lib.CamParams(*cam), *args, quirks),
+                (0, 0, 0, 0))
+
+    return batched.custom_op("measure", measure_op, rule)
+
+
 def measure(camera: Camera, cam7: torch.Tensor, feats: torch.Tensor,
             is_xyz: torch.Tensor, active: torch.Tensor, quirks: bool = False):
-    """The measurement chain: plain version on the CPU, the kernel on CUDA."""
+    """The measurement chain: plain version on the CPU, the kernel on CUDA
+    (one launch for all streams under ``torch.func.vmap``)."""
     if feats.device.type == "cpu":
         return measure_plain(camera, cam7, feats, is_xyz, active, quirks)
+    if batched.any_batched(cam7, feats, is_xyz, active):
+        return _batched_op()(cuda_lib.CamParams.values(camera), cam7, feats,
+                             is_xyz, active, bool(quirks))
     return measure_cuda(camera, cam7, feats, is_xyz, active, quirks)

@@ -18,15 +18,22 @@ columns 0:13 (csrc/predict.cu).
 
 ``predict`` is the wrapper: a CPU tensor runs ``predict_plain`` (the
 filter/predict.py chain), a CUDA tensor launches the kernel or raises.
+
+B streams stacked on a leading axis take one launch (the stream is a
+grid index; each stream's bits are its single launch's), which the
+batched step (parallel/batch_runner.py) reaches under ``torch.func.vmap``
+through the wrapper's custom op (ops/batched.py).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from openekfmonoslam_tpu_torch.filter import shardable
 from openekfmonoslam_tpu_torch.filter.state import CAM_DIM
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 
 LAUNCHES = cuda_lib.LaunchCounter("predict")
 
@@ -45,11 +52,12 @@ def predict_plain(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
     # G (13x6): d(state)/d(noise (v_err, w_err)); the noise enters the
     # dynamics like (v, w), so the quaternion block reuses F's columns
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    G = torch.zeros((CAM_DIM, 6), dtype=dtype, device=dev)
-    G[0:3, 0:3] = eye3 * dt
-    G[3:7, 3:6] = F[3:7, 10:13]
-    G[7:10, 0:3] = eye3
-    G[10:13, 3:6] = eye3
+    z3 = torch.zeros((3, 3), dtype=dtype, device=dev)
+    G = torch.cat([torch.cat([eye3 * dt, z3], dim=1),
+                   torch.cat([torch.zeros((4, 3), dtype=dtype, device=dev),
+                              F[3:7, 10:13]], dim=1),
+                   torch.cat([eye3, z3], dim=1),
+                   torch.cat([z3, eye3], dim=1)])
     q_diag = torch.tensor([lin] * 3 + [ang] * 3, dtype=dtype, device=dev)
 
     top = F @ P[:CAM_DIM, :]
@@ -63,26 +71,45 @@ def predict_plain(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
 
 def predict_cuda(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
                  ang: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x', P') from one launch of the CUDA kernel; P (N, N), x (N,)."""
+    """(x', P') from one launch of the CUDA kernel; P (N, N), x (N,), or
+    B streams stacked, P (B, N, N), x (B, N), in the same one launch."""
     P, x = P.contiguous(), x.contiguous()
     cuda_lib.check_cuda_inputs("predict", {"P": P, "x": x})
-    N = P.shape[0]
-    if P.shape != (N, N) or x.shape != (N,) or N < CAM_DIM:
+    N = P.shape[-1]
+    lead = tuple(P.shape[:-2])
+    if (P.shape != lead + (N, N) or x.shape != lead + (N,) or len(lead) > 1
+            or N < CAM_DIM):
         raise ValueError(f"predict: bad shapes P {tuple(P.shape)}, "
                          f"x {tuple(x.shape)}")
     P_out = torch.empty_like(P)
     x_out = torch.empty_like(x)
     cuda_lib.library().call(
-        "ekf_predict", P.data_ptr(), x.data_ptr(), P_out.data_ptr(),
-        x_out.data_ptr(), N, float(dt), float(lin), float(ang),
-        cuda_lib.stream_of(P))
+        "ekf_predict_batched", P.data_ptr(), x.data_ptr(), P_out.data_ptr(),
+        x_out.data_ptr(), N, lead[0] if lead else 1, float(dt), float(lin),
+        float(ang), cuda_lib.stream_of(P))
     LAUNCHES.hit()
     return x_out, P_out
 
 
+@functools.cache
+def _batched_op():
+    def predict_op(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
+                   ang: float) -> tuple[torch.Tensor, torch.Tensor]:
+        return predict_cuda(P, x, dt, lin, ang)
+
+    def rule(info, in_dims, P, x, dt, lin, ang):
+        P, x = batched.stacked(info.batch_size, in_dims, P, x)
+        return predict_cuda(P, x, dt, lin, ang), (0, 0)
+
+    return batched.custom_op("predict", predict_op, rule)
+
+
 def predict(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
             ang: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """The predict phase: plain version on the CPU, the kernel on CUDA."""
+    """The predict phase: plain version on the CPU, the kernel on CUDA
+    (one launch for all streams under ``torch.func.vmap``)."""
     if P.device.type == "cpu":
         return predict_plain(P, x, dt, lin, ang)
+    if batched.any_batched(P, x):
+        return _batched_op()(P, x, dt, lin, ang)
     return predict_cuda(P, x, dt, lin, ang)

@@ -32,16 +32,22 @@ compiler contracts nothing.
 
 ``star_from_integral`` is the wrapper: a CPU tensor runs ``star_plain``, a
 CUDA tensor launches the kernel or raises.
+
+B streams stacked on a leading axis take one launch (the stream is a
+grid index; each stream's bits are its single launch's), which the
+batched step (parallel/batch_runner.py) reaches under ``torch.func.vmap``
+through the wrapper's custom op (ops/batched.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 from openekfmonoslam_tpu_torch.vision import fast, star
 
 LAUNCHES = cuda_lib.LaunchCounter("star")                # staged route
@@ -107,11 +113,15 @@ def star_plan(s: StarSettings) -> tuple[str, int]:
 def star_cuda(ii: torch.Tensor, h: int, w: int, s: StarSettings,
               route: str | None = None):
     """The same two maps from one launch of the CUDA kernel, by
-    ``star_plan``'s route or by ``route`` ("direct" takes any settings)."""
+    ``star_plan``'s route or by ``route`` ("direct" takes any settings);
+    B streams' integral images stacked (B, ...) give (B, h, w) maps from
+    the same one launch."""
     ii = ii.contiguous()
     cuda_lib.check_cuda_inputs("star", {"ii": ii})
     pad = star.integral_pad(s.max_size)
-    if ii.shape != (h + 2 * pad + 1, w + 2 * pad + 1) or h < 1 or w < 1:
+    lead = tuple(ii.shape[:-2])
+    if (ii.shape != lead + (h + 2 * pad + 1, w + 2 * pad + 1) or h < 1
+            or w < 1 or len(lead) > 1):
         raise ValueError(f"star: integral image {tuple(ii.shape)} does not "
                          f"match a {h}x{w} frame with pad {pad}")
     if len(star.star_sizes(s.max_size)) > cuda_lib.STAR_MAX_SIZES \
@@ -123,21 +133,42 @@ def star_cuda(ii: torch.Tensor, h: int, w: int, s: StarSettings,
                                                                  "direct"):
         raise ValueError(f"star: route {route!r} under {s} (planned "
                          f"{planned!r})")
-    raw = torch.empty((h, w), dtype=torch.float32, device=ii.device)
+    raw = torch.empty(lead + (h, w), dtype=torch.float32, device=ii.device)
     nms = torch.empty_like(raw)
-    params = star_params(h, w, ii.shape[1], s)
-    cuda_lib.library().call("ekf_star", ii.data_ptr(), ctypes.byref(params),
-                            int(route == "staged"), raw.data_ptr(),
+    params = star_params(h, w, ii.shape[-1], s)
+    cuda_lib.library().call("ekf_star_batched", ii.data_ptr(),
+                            ctypes.byref(params), int(route == "staged"),
+                            lead[0] if lead else 1, raw.data_ptr(),
                             nms.data_ptr(), cuda_lib.stream_of(ii))
     (LAUNCHES if route == "staged" else DIRECT_LAUNCHES).hit()
     return raw, nms
 
 
+@functools.cache
+def _batched_op():
+    def star_op(ii: torch.Tensor, h: int, w: int, max_size: int,
+                response_threshold: float, line_threshold: float,
+                nms_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return star_cuda(ii, h, w, StarSettings(
+            max_size, response_threshold, line_threshold, nms_radius))
+
+    def rule(info, in_dims, ii, h, w, *settings):
+        (ii,) = batched.stacked(info.batch_size, in_dims[:1], ii)
+        return star_cuda(ii, h, w, StarSettings(*settings)), (0, 0)
+
+    return batched.custom_op("star", star_op, rule)
+
+
 def star_from_integral(ii: torch.Tensor, h: int, w: int, s: StarSettings):
     """(score_raw, score_nms) of an (h, w) frame from its integral image:
-    plain version on the CPU, the kernel on CUDA."""
+    plain version on the CPU, the kernel on CUDA (one launch for all
+    streams under ``torch.func.vmap``)."""
     if ii.device.type == "cpu":
         return star_plain(ii, h, w, s)
+    if batched.any_batched(ii):
+        return _batched_op()(ii, h, w, int(s.max_size),
+                             float(s.response_threshold),
+                             float(s.line_threshold), int(s.nms_radius))
     return star_cuda(ii, h, w, s)
 
 

@@ -33,13 +33,21 @@ the kernels' factored steps in PyTorch.  ``filter/update.update`` takes
 this kernel only where ``update_kernel_applicable`` holds, as the JAX
 package does; elsewhere it runs the chain with the S-inverse kernel
 (ops/sinv.py).
+
+B streams stacked on a leading axis take the same three launches (the
+stream is a grid index, one factor CTA a stream; each stream's bits are
+its single launch's), which the batched step (parallel/batch_runner.py)
+reaches under ``torch.func.vmap`` through the wrapper's custom op
+(ops/batched.py).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib, spd_core
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib, spd_core
 
 LAUNCHES = cuda_lib.LaunchCounter("update")
 
@@ -91,19 +99,24 @@ def joint_update_cuda(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     """(x', P', factor) from the CUDA kernels; P (N, N), x (N,), HP (2F, N),
     Sfull (2F, 2F), uv/z (F, 2), use (F,) bool.  The factor of the masked
     S that the update used is returned for checking
-    (``spd_core.dense_factor``)."""
+    (``spd_core.dense_factor``).  B streams stacked (a leading B axis on
+    every operand) take the same three launches, each stream's factor on
+    its own CTA; the factor is then returned only for B = 1 (None)."""
     P, x, HP, Sfull, uv, z, use = (t.contiguous() for t in (P, x, HP, Sfull,
                                                            uv, z, use))
     cuda_lib.check_cuda_inputs("update", {
         "P": P, "x": x, "HP": HP, "Sfull": Sfull, "uv": uv, "z": z,
         "use": use})
-    N = P.shape[0]
-    F = use.shape[0]
+    lead = tuple(P.shape[:-2])
+    N = P.shape[-1]
+    F = use.shape[-1]
     M = 2 * F
-    if (P.shape != (N, N) or x.shape != (N,) or HP.shape != (M, N)
-            or Sfull.shape != (M, M) or uv.shape != (F, 2)
-            or z.shape != (F, 2) or F < 1 or N < 7):
+    if (P.shape != lead + (N, N) or x.shape != lead + (N,)
+            or HP.shape != lead + (M, N) or Sfull.shape != lead + (M, M)
+            or uv.shape != lead + (F, 2) or z.shape != lead + (F, 2)
+            or use.shape != lead + (F,) or len(lead) > 1 or F < 1 or N < 7):
         raise ValueError("update: bad shapes")
+    B = lead[0] if lead else 1
     dev = P.device
     P_out = torch.empty_like(P)
     x_out = torch.empty_like(x)
@@ -114,21 +127,42 @@ def joint_update_cuda(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     sizes = [spd_core.tri(M), blocks * spd_core.NB ** 2, M * N, 16,
              slabs * M * (SLAB + 1) if M * (SLAB + 1) * 4 > SOLVE_SMEM_MAX
              else 0]
-    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    # a stream's scratch block, rounded to 16 bytes
+    per_stream = -(-sum(sizes) // 4) * 4
+    scratch = torch.empty((B * per_stream,), dtype=torch.float32,
+                          device=dev)
     ptrs, base = [], scratch.data_ptr()
     for n in sizes:
         ptrs.append(base)
         base += 4 * n
-    ints = torch.empty((M + 2,), dtype=torch.int32, device=dev)
+    ints = torch.empty((B * (M + 2),), dtype=torch.int32, device=dev)
     cuda_lib.library().call(
-        "ekf_update", P.data_ptr(), x.data_ptr(), HP.data_ptr(),
+        "ekf_update_batched", P.data_ptr(), x.data_ptr(), HP.data_ptr(),
         Sfull.data_ptr(), uv.data_ptr(), z.data_ptr(), use.data_ptr(),
         P_out.data_ptr(), x_out.data_ptr(), *ptrs, ints.data_ptr(),
-        ints.data_ptr() + 4 * M, N, F, float(pixel_error),
+        ints.data_ptr() + 4 * M, N, F, B, per_stream, float(pixel_error),
         cuda_lib.stream_of(P))
     LAUNCHES.hit()
-    factor = spd_core.Factor(scratch[:sizes[0]], ints[:M], ints[M:])
+    factor = (spd_core.Factor(scratch[:sizes[0]], ints[:M], ints[M:])
+              if not lead else None)
     return x_out, P_out, factor
+
+
+@functools.cache
+def _batched_op():
+    def update_op(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
+                  Sfull: torch.Tensor, uv: torch.Tensor, z: torch.Tensor,
+                  use: torch.Tensor, pixel_error: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        return joint_update_cuda(P, x, HP, Sfull, uv, z, use,
+                                 pixel_error)[:2]
+
+    def rule(info, in_dims, P, x, HP, Sfull, uv, z, use, pixel_error):
+        args = batched.stacked(info.batch_size, in_dims[:7], P, x, HP, Sfull,
+                               uv, z, use)
+        return joint_update_cuda(*args, pixel_error)[:2], (0, 0)
+
+    return batched.custom_op("update", update_op, rule)
 
 
 def joint_update(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
@@ -139,6 +173,8 @@ def joint_update(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     on CUDA.  Returns (x', P')."""
     if P.device.type == "cpu":
         return update_plain(P, x, HP, Sfull, uv, z, use, pixel_error)
+    if batched.any_batched(P, x, HP, Sfull, uv, z, use):
+        return _batched_op()(P, x, HP, Sfull, uv, z, use, float(pixel_error))
     x_out, P_out, _ = joint_update_cuda(P, x, HP, Sfull, uv, z, use,
                                         pixel_error)
     return x_out, P_out

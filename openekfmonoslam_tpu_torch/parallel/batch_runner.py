@@ -1,0 +1,199 @@
+"""B camera streams through one frame step (port of parallel/batch_runner.py).
+
+Production serving runs one filter per camera stream.  Here B streams
+share each step: every field of the state gains a leading (B,) axis, and
+the step's phases (``SlamRuntime.phase_*``) run under ``torch.func.vmap``,
+so each PyTorch op is dispatched once for the B streams.  On the GPU every
+hand-written kernel of the path (predict, measure, the fused update,
+STAR, BRIEF and the add path's init (A) and (B)) is reached through its
+``torch.library`` custom op, whose vmap rule makes ONE launch with a
+stream index in its grid (ops/batched.py): the launches a batched frame
+makes do not grow with B, and each stream's bits are those of its own
+single-stream launch.  The streams never exchange data.
+
+Rare paths are gated at batch level, as the JAX package's
+``lax.cond(jnp.any(...))`` does: the conversion runs masked per stream on
+the device (as the single-stream step runs it), and the batch reads back
+(any stream needs features?, each stream's need) once a frame, its one
+host sync.  Detection and addition then run for all streams when any
+needs features, with the largest count's picks and each stream stopped at
+its own count (``detect.select_zone_balanced``'s ``limit``); a stream that
+did not trigger has its candidates masked off, so its state passes through
+bit for bit and its record's ``new_uv`` is zeros.
+
+Scope: the FAST and STAR detectors with BRIEF descriptors and the
+descriptor matcher, in correct-math mode; on the card the fused update
+must apply (float32, N <= 768, 2F <= 512).  Other profiles, the NCC
+matcher, the parity modes and the large map raise NotImplementedError
+(ROADMAP Queue 1 item 18b).  The JAX package's mesh arguments and its
+two-axis layout (``make_batched_step_2d``, ``batch_state_shardings_2d``)
+wait for the port's P sharding (item 21).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import vmap
+
+from openekfmonoslam_tpu_torch.engine.scan_runner import stack_records
+from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
+                                                   SlamRuntime, StepRecord)
+from openekfmonoslam_tpu_torch.filter import features as feat_mod
+from openekfmonoslam_tpu_torch.filter import mapman
+from openekfmonoslam_tpu_torch.filter.state import SlamState
+from openekfmonoslam_tpu_torch.ops import update_kernel
+
+BATCHED_DETECTORS = ("FAST", "STAR")
+
+
+def _live(name: str) -> torch.profiler.record_function:
+    """The single-stream step's profiler range of a phase (``step.<name>``),
+    here around the phase of all B streams."""
+    return torch.profiler.record_function(LIVE_PHASE_PREFIX + name)
+
+
+def check_batchable(runtime: SlamRuntime) -> None:
+    """Raise NotImplementedError for a configuration the batched step does
+    not run (ROADMAP Queue 1 item 18b)."""
+    cfg = runtime.config
+    N, F = cfg.padded_state_dim, cfg.max_features
+    why = None
+    if cfg.detector.kind.upper() not in BATCHED_DETECTORS:
+        why = f"the {cfg.detector.kind} detector"
+    elif cfg.descriptor.kind.upper() != "BRIEF":
+        why = f"the {cfg.descriptor.kind} descriptor"
+    elif cfg.matcher != "descriptor":
+        why = f"the {cfg.matcher} matcher"
+    elif runtime.quirks or cfg.ransac_parity_visit:
+        why = "the parity mode"
+    elif runtime.device.type == "cuda" and not (
+            runtime.dtype == torch.float32
+            and update_kernel.update_kernel_fits(N, 2 * F)):
+        why = (f"the update chain with the S-inverse ({cfg.dtype}, N = {N},"
+               f" 2F = {2 * F}: the fused update does not apply)")
+    if why is not None:
+        raise NotImplementedError(
+            f"batched step: {why} is not batched yet (ROADMAP Queue 1 item "
+            "18b)")
+
+
+def make_batch_states(runtime: SlamRuntime, batch: int,
+                      seeds=None) -> SlamState:
+    """A SlamState whose every field gains a leading (B,) axis; ``seeds``
+    (B ints) sets each stream's ``rng`` (filter/state.py's int64 seed)."""
+    base = runtime.make_initial_state()
+    states = SlamState(*(t.expand((batch,) + tuple(t.shape)).contiguous()
+                         for t in base))
+    if seeds is not None:
+        rng = torch.as_tensor(list(seeds), dtype=torch.int64,
+                              device=runtime.device)
+        if rng.shape != (batch,):
+            raise ValueError(f"seeds: {batch} expected, got {rng.shape}")
+        states = states._replace(rng=rng)
+    return states
+
+
+def batched_init_recorded(runtime: SlamRuntime, states: SlamState, grays):
+    """``init_step_recorded`` over the stream axis: (states, uv, ok, slot),
+    the last three (B, C, ...) (each stream's bootstrap features, the
+    entry of its injection log)."""
+    check_batchable(runtime)
+    return vmap(runtime.init_step_recorded)(states, runtime._tensor(grays))
+
+
+def make_batched_init(runtime: SlamRuntime):
+    """``init_step`` over the stream axis: (states, grays (B, H, W)) ->
+    states."""
+    check_batchable(runtime)
+
+    def batched_init(states: SlamState, grays) -> SlamState:
+        return batched_init_recorded(runtime, states, grays)[0]
+
+    return batched_init
+
+
+def batched_step(runtime: SlamRuntime, states: SlamState, grays
+                 ) -> tuple[SlamState, StepRecord]:
+    """The frame step over a leading (B,) stream axis, rare paths gated at
+    batch level; ``grays`` (B, H, W).  Returns (states, records), each
+    record field with a leading (B,) axis.  Each phase is a ``step.<phase>``
+    profiler range, as in ``SlamRuntime.step``."""
+    check_batchable(runtime)
+    rt = runtime
+    cfg = rt.config
+    C, F = cfg.max_features, cfg.max_features
+    grays = rt._tensor(grays)
+    B = grays.shape[0]
+    with _live("predict"):
+        states, pred = vmap(rt.phase_predict)(states)
+    with _live("match"):
+        m, aux, in_ellipse = vmap(rt.phase_match)(states, pred, grays)
+    with _live("ransac"):
+        res = vmap(rt.phase_ransac)(states, pred, m)
+    with _live("update_li"):
+        states = vmap(rt.phase_update_li)(states, pred, m, res.inliers)
+    with _live("rescue"):
+        pred2, rescued = vmap(rt.phase_rescue)(states, m, res.outliers)
+    with _live("update_hi"):
+        states = vmap(rt.phase_update_hi)(states, pred2, m, rescued)
+    with _live("mapman"):
+        states, do_mm, needed = vmap(rt.mapman_maintain)(
+            states, pred, m, res.inliers | rescued)
+        thr = cfg.ekf.inverse_depth_linearity_index_threshold
+        states = vmap(lambda st, en: mapman.convert_one_to_xyz(
+            st, thr, enable=en))(states, do_mm)
+
+        # the batch's one host read: which streams need features, and how
+        # many each
+        flags = do_mm & (needed > 0)
+        wants, counts = torch.stack([flags.to(torch.int32),
+                                     needed]).tolist()
+        dev = rt.device
+        if not any(wants):
+            new_uv = torch.zeros((B, C, 2), dtype=rt.dtype, device=dev)
+            new_ok = torch.zeros((B, C), dtype=torch.bool, device=dev)
+            new_slot = torch.full((B, C), F, dtype=torch.int32, device=dev)
+        else:
+            n_iter = max(min(n, C) for w, n in zip(wants, counts) if w)
+            limit = torch.clamp(needed, 0, C)
+            cand_uv, cand_desc, cand_valid = vmap(
+                lambda st, pr, ax, ie, lim: rt.detect_candidates(
+                    st, pr, ax, ie, n_iter, lim))(states, pred, aux,
+                                                  in_ellipse, limit)
+            cand_uv = cand_uv.to(rt.dtype)
+            cand_valid = cand_valid & flags[:, None]
+            new_slot, new_ok = vmap(feat_mod.assign_slots)(states.active,
+                                                           cand_valid)
+            states = vmap(lambda st, uv, de, sl, ok:
+                          feat_mod._add_features_impl(
+                              st, rt.camera, cfg, uv, de, sl, ok))(
+                states, cand_uv, cand_desc, new_slot, new_ok)
+            new_uv = torch.where(flags[:, None, None], cand_uv,
+                                 torch.zeros_like(cand_uv))
+    records = vmap(rt.make_record)(states, pred, m, res, rescued, new_uv,
+                                   new_ok, new_slot)
+    return states, records
+
+
+def make_batched_step(runtime: SlamRuntime):
+    """(states, grays (B, H, W)) -> (states, records): ``batched_step``
+    with the configuration checked once."""
+    check_batchable(runtime)
+
+    def step(states: SlamState, grays) -> tuple[SlamState, StepRecord]:
+        return batched_step(runtime, states, grays)
+
+    return step
+
+
+def scan_batched_sequences(runtime: SlamRuntime, states: SlamState, frames
+                           ) -> tuple[SlamState, StepRecord]:
+    """B sequences stepped together: ``frames`` (B, T, H, W) uploaded once;
+    returns the final states and the records stacked with leading (T, B)
+    axes."""
+    frames = runtime._tensor(frames)
+    records = []
+    for t in range(frames.shape[1]):
+        states, rec = batched_step(runtime, states, frames[:, t])
+        records.append(rec)
+    return states, stack_records(records)

@@ -10,7 +10,10 @@ The JAX package runs the picks as a ``while_loop`` that stops after
 ``min(needed, max_new)`` picks or when no candidate is left.  Here the
 caller passes that count, read on the host, as ``n_iter``: a pick with no
 candidate left changes nothing, so ``n_iter`` masked picks give the while
-loop's result with no further host read.
+loop's result with no further host read.  The batched step
+(parallel/batch_runner.py) passes the largest count of its streams as
+``n_iter`` and each stream's own count as the device tensor ``limit``:
+picks past a stream's limit change nothing either.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ def select_zone_balanced(kp_xy: torch.Tensor, kp_score: torch.Tensor,
                          kp_avail: torch.Tensor, pred_uv: torch.Tensor,
                          pred_visible: torch.Tensor, n_iter: int,
                          exclusion_radius: float, zones_in_a_row: int,
-                         image_w: int, image_h: int,
-                         max_new: int) -> NewFeatures:
-    """Pick up to ``n_iter`` (<= max_new) keypoints, zone-balanced.
+                         image_w: int, image_h: int, max_new: int,
+                         limit: torch.Tensor | None = None) -> NewFeatures:
+    """Pick up to ``n_iter`` (<= max_new) keypoints, zone-balanced, and no
+    more than ``limit`` (a 0-dim integer tensor) when it is given.
 
     ``kp_xy`` (K, 2) float32 pixels; ``kp_avail`` should already exclude
     keypoints inside prediction ellipses."""
@@ -68,6 +72,8 @@ def select_zone_balanced(kp_xy: torch.Tensor, kp_score: torch.Tensor,
         cand_ok = avail & (kp_zone == zone_sel)
         kp_sel = torch.argmax(torch.where(cand_ok, kp_score, neg_inf))
         do = torch.any(cand_ok)
+        if limit is not None:
+            do = do & (n_picked < limit)
 
         # suppress everything inside the exclusion radius of the pick
         sel_xy = torch.index_select(kp_xy, 0, kp_sel.reshape(1))

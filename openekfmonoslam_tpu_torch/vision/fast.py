@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from openekfmonoslam_tpu_torch.ops import batched
+
 
 # Bresenham circle radius 3, clockwise from 12 o'clock: (dy, dx)
 RING_OFFSETS = (
@@ -116,6 +118,23 @@ def subpixel_refine(score_raw: torch.Tensor, xy: torch.Tensor,
     return xy + shift * valid[:, None].to(xy.dtype)
 
 
+def float32_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x.view(torch.int32)`` as int64, by exact float64 arithmetic: a
+    normal |x| in [2^e, 2^(e + 1)) has the bits (e + 127) 2^23 + (|x| 2^-e
+    - 1) 2^23, a subnormal one |x| 2^149; less 2^31 when the sign bit is
+    set.  For finite x.  The batched step takes this form under
+    ``torch.func.vmap``, which in PyTorch before 2.13 has no batching rule
+    for a dtype view."""
+    a = torch.abs(x).to(torch.float64)
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    e = e - (torch.exp2(e) > a).to(e.dtype) + (torch.exp2(e + 1) <= a).to(
+        e.dtype)
+    bits = torch.where(a < 2.0 ** -126, a * 2.0 ** 149,
+                       (e + 127) * 2.0 ** 23
+                       + (a / torch.exp2(e) - 1) * 2.0 ** 23).to(torch.int64)
+    return torch.where(torch.signbit(x), bits - 2 ** 31, bits)
+
+
 def detect_keypoints(score_nms: torch.Tensor, pixel_mask: torch.Tensor,
                      max_keypoints: int) -> Keypoints:
     """Top-K corners from an NMS'd (non-negative) score map restricted to
@@ -130,7 +149,9 @@ def detect_keypoints(score_nms: torch.Tensor, pixel_mask: torch.Tensor,
     n = flat.shape[0]
     shift = max(n - 1, 1).bit_length()
     idx = torch.arange(n, device=flat.device, dtype=torch.int64)
-    key = (flat.view(torch.int32).to(torch.int64) << shift) | (n - 1 - idx)
+    bits = (float32_bits(flat) if batched.any_batched(flat)
+            else flat.view(torch.int32).to(torch.int64))
+    key = (bits << shift) | (n - 1 - idx)
     top_key = torch.topk(key, max_keypoints, sorted=True).values
     top_idx = (n - 1) - (top_key & ((1 << shift) - 1))
     top_scores = flat[top_idx]

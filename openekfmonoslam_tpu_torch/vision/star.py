@@ -48,10 +48,16 @@ def integral_pad(max_size: int) -> int:
 
 def _integral(img: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge-padded, mean-centred integral image with a zero top row and
-    left column: (H + 2 pad + 1, W + 2 pad + 1) float32."""
+    left column: (H + 2 pad + 1, W + 2 pad + 1) float32.
+
+    The mean is the float64 sum over the pixel count, rounded to float32:
+    the sum of integer grey levels is exact in float64 in any order, so
+    the mean does not depend on how a reduction is blocked (a float32 mean
+    moves by an ulp under ``torch.func.vmap``, and the whole integral image
+    with it)."""
     p = nnf.pad(img.to(torch.float32)[None, None], (pad,) * 4,
                 mode="replicate")[0, 0]
-    p = p - torch.mean(p)
+    p = p - (torch.sum(p, dtype=torch.float64) / p.numel()).to(torch.float32)
     ii = torch.cumsum(torch.cumsum(p, dim=0), dim=1)
     return nnf.pad(ii, (1, 0, 1, 0))
 

@@ -29,7 +29,8 @@ def test_every_port_module_imports_without_jax():
                  "eval.oracle", "eval.compare", "vision.dog", "vision.orb",
                  "vision.floatdesc", "vision.harris", "vision.fast",
                  "vision.ncc", "graph.pose_graph", "graph.loop_closure",
-                 "serving.protocol", "serving.server"):
+                 "serving.protocol", "serving.server",
+                 "parallel.batch_runner", "io.native_loader", "ops.batched"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --profiles-only   # phases 1 and 8 alone
     python3 chip_smoke.py --engine-features-only   # phases 1 and 9-11
     python3 chip_smoke.py --batch-only      # phases 1 and 12 alone
+    python3 chip_smoke.py --viz-only        # phases 1 and 13 alone
     python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
                                  # agreement at other scenes (phase 1 first)
 
@@ -68,7 +69,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
               2 host syncs a frame, at the summary fetch in
               SlamEngine.step and the read in phase_mapman), one under
               torch.profiler (per-phase ms) that saves a checkpoint at
-              frame 100 which a fresh engine resumes to the end (records
+              frame 50 which a fresh engine resumes to the end (records
               bit for bit), the S-inverse on a kept frame's own S against
               float64, and the live log replayed on the CPU in float64.
   7. parity   the bug-compatible parity mode (reference_quirks and
@@ -89,7 +90,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
               float64 (1e-4 m, masks 95%).
   8. profiles the other front-end profiles on the live entry points:
               SlamConfig() (FAST + BRIEF-256, the default) over phase 5's
-              201 frames through run_sequence_on_device, with every launch
+              101 frames through run_sequence_on_device, with every launch
               counter set to 0 just before and read just after (BRIEF once
               a frame, STAR never, predict, measure, the fused update and
               init as in phase 5), a second timed run, a run under sync
@@ -145,13 +146,40 @@ Phases, each of which passes or raises (the script then exits non-zero):
               for bit with stream 1's frames flipped; 10 batched frames
               under torch.profiler; and stream-frames/s at B = 1, 4, 8 and
               16 over 21 frames after 5 (the sweep up and down) beside the
-              single-stream step in the same call.
+              single-stream step in the same call.  Then, at B = 4 over 21
+              frames of those streams, each other configuration at full
+              width with its own defaults: ORB/ORB, SIFT/SURF, SURF/SURF,
+              HARRIS/BRIEF and SHI_TOMASI/ORB, NCC (PATCH), the parity mode
+              (both flags, 1000 hypotheses) and the large map (MaxMapSize
+              960: F = 168, N = 1024): each kernel launched as often a
+              batched frame as a single-stream frame (the S-inverse's
+              memset and six launches once an update phase on the large
+              map and in parity, its six batched kernels by name under the
+              profiler), at most 1 host sync a batched frame, each stream
+              within 1e-4 m of its single-stream card run (masks on 95% of
+              frames), tracking health, stream-frames/s beside the single
+              stream, and vmap's per-sample fallbacks by op (the card's
+              torch lacks some batching rules the CPU's has);
+ 13. viz      SlamEngine with the s3 profile, render, render_debug and
+              viz3d_every 10 over 21 frames into chiprun_out/viz: the JAX
+              engine's files (%05d.png, videoOutput.mp4, debug/%05d.png,
+              debug/ransacDebug.mp4, map3d_%05d.png), each overlay against
+              the port's draw_* applied on the CPU to that frame's record,
+              the host syncs a rendered frame against an unrendered one,
+              the drawing fields' read-back and snapshot_from_state against
+              the CPU's.  OpenCV or matplotlib missing on the machine is
+              printed on its own line, and what needs it is not rendered.
+
+Phases 5, 6 and 8 run 100 steps each, which keeps the whole run well
+inside its time limit with phases 12 and 13.
 
 Phase 2 also launches each main-path kernel (predict, measure and its
 quirks variant, the update's three launches, init (A) and (B), STAR by
-both routes, BRIEF by both variants) once over 8 streams' different
-inputs, checks it bit for bit against 8 single launches, and times that
-launch (CUDA graph): each row's ``batch8_ms``.
+both routes, BRIEF by both variants, the S-inverse's memset and six
+launches) once over 8 streams' different inputs, checks it bit for bit
+against 8 single launches, and times that launch (CUDA graph): each row's
+``batch8_ms``.  The S-inverse's 8 streams are masked S of the large map's
+M = 336 (one with every row masked), and again at M = 337.
 
 Phase 2 also checks STAR and BRIEF against their float32 plain versions
 (bit for bit) on a textured 640x480 frame and on an odd 483x645 one:
@@ -172,9 +200,9 @@ and for STAR's direct route and BRIEF's generic variant, which no shipped
 setting takes, phase 6 for the S-inverse, phase 7's engine for the
 measure kernel's quirks variant; the Cholesky solve has no path; the
 S-inverse's times and bound are on a kept frame's S of phase 6), with
-``launches_batch`` from phase 12's main run and ``batch8_ms`` from phase
-2 (null for the S-inverse and the Cholesky solve, which have no batched
-launch).  The last line is {"ok": true, "device": {...}}.  Details go to
+``launches_batch`` from phase 12's main run, ``launches_batch_configs``
+from its runs of the other configurations, and ``batch8_ms`` from phase 2
+(null for the Cholesky solve, which has no path and no batched launch).  The last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -184,8 +212,11 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -198,7 +229,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from openekfmonoslam_tpu_torch.config import (DescriptorConfig,
-                                              DetectorConfig, SlamConfig)
+                                              DetectorConfig, SlamConfig,
+                                              auto_max_features, load_config)
 from openekfmonoslam_tpu_torch.core import camera as cam_mod
 from openekfmonoslam_tpu_torch.core import quaternion as quat
 from openekfmonoslam_tpu_torch.engine import checkpoint as ckpt_mod
@@ -303,7 +335,7 @@ def read_launches() -> dict:
     return {name: spec["counter"].count for name, spec in KERNELS.items()}
 
 T_FRAMES = 220          # frames of the replay path (>= 200)
-T_LIVE = 201            # frames of the live path: init_step + 200 steps
+T_LIVE = 101            # frames of the live path: init_step + 100 steps
 LIVE_HW = (480, 640)    # the s3 frame size
 GRAPH_REPS = 200        # kernel launches per timed CUDA graph
 EAGER_REPS = 200        # eager kernel launches per timing
@@ -340,7 +372,7 @@ LIVE_SYNCS_PER_FRAME = 1.0    # the (add?, needed) read of phase_mapman
 LARGE_F, LARGE_N = 168, 1024
 # the engine's summary fetch and the read of phase_mapman
 LARGE_SYNCS_PER_FRAME = 2.0
-LARGE_CKPT_AT = 100           # the frame whose checkpoint is resumed
+LARGE_CKPT_AT = 50            # the frame whose checkpoint is resumed
 # the parity mode (phase 7): the reference's bug-compatible filter
 PARITY = dict(reference_quirks=True, ransac_parity_visit=True)
 T_PARITY_LIVE = 101           # the parity engine: init + 100 steps
@@ -433,8 +465,12 @@ MEASURE_CHAIN = {"filter.predict_measurements": (meas_mod,
 # ... and its additions (the init kernels with the scatters beside them)
 ADD_CHAIN = {"filter.add_features": (feat_mod, "_add_features_impl")}
 # ... of the S-inverse (csrc/sinv.cu) and of the fused update (update.cu)
-SINV_KERNEL_NAMES = ("sinv_flags", "sinv_factor", "sinv_solve",
-                     "sinv_product<0>", "sinv_product<1>", "sinv_product<2>")
+SINV_KERNEL_NAMES = ("sinv_flags<false>", "sinv_factor<false>",
+                     "sinv_solve<false>", "sinv_product<0, false>",
+                     "sinv_product<1, false>", "sinv_product<2, false>")
+# ... and its batched launch (one over B streams each)
+SINV_BATCH_NAMES = tuple(n.replace("false>", "true>")
+                         for n in SINV_KERNEL_NAMES)
 UPDATE_KERNEL_NAMES = ("update_factor", "update_solve", "update_downdate")
 # ... of the add path (csrc/init.cu)
 ADD_KERNEL_NAMES = ("init_chain", "init_augment<true>", "init_augment<false>")
@@ -1106,10 +1142,18 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
             plain=lambda: update_kernel.update_plain(*argsl))
     rows["sinv_spd336"]["checks"] = sinv_checks
     check_batched_kernels(failures, rows, cfg, camera, frontend, dev)
+    sinv_batch8 = check_sinv_batched(failures, dev)
+    # the update's masked S at M = 336 (a single launch), and the batch
+    S_m = torch.tensor(masked_s(336), **f32)
+    rows["sinv_masked336"] = sinv_row(S_m, max(
+        c["abs_err"] for c in sinv_checks if c["cond"] == "masked"))
+    rows["sinv_masked336"]["batch8"] = sinv_batch8
     end_phase("kernels (checks)", failures)
 
     for name, row in rows.items():
         time_row(name, row)
+    # the path's S-inverse row (timed after phase 6) takes the same batch
+    rows["sinv_batch8_fn"] = sinv_batch8
     # the per-launch floor: an empty hand-written kernel in the same harness
     rows["floor"] = dict(
         ms=graph_ms(lambda: cuda_lib.library().call(
@@ -1277,11 +1321,11 @@ def spd_cond(m: int, cond: float, seed: int = 0) -> np.ndarray:
     return ((s + s.T) / 2).astype(np.float32)
 
 
-def masked_s(m: int, seed: int = 1) -> np.ndarray:
-    """tests/test_sinv.py's masked S: identity rows for unused slots, the
-    shape the update gives the inverse."""
+def masked_s(m: int, seed: int = 1, used_frac: float = 0.6) -> np.ndarray:
+    """tests/test_sinv.py's masked S: identity rows for unused slots (about
+    1 - used_frac of them), the shape the update gives the inverse."""
     rng = np.random.default_rng(seed)
-    used = rng.random(m) < 0.6
+    used = rng.random(m) < used_frac
     h = rng.normal(size=(m, 30)) * 3.0
     s = np.zeros((m, m), np.float32)
     s[np.ix_(used, used)] = (h @ h.T)[np.ix_(used, used)]
@@ -1306,6 +1350,40 @@ def check_sinv(failures, tag, S, limit) -> tuple[float, float, int]:
     check(failures, rel <= limit and info == 0,
           f"sinv[{tag}] rel err {rel:.3e} <= {limit:.1e}, info {info} == 0")
     return rel, err, info
+
+
+def sinv_batch(m: int, seed: int) -> np.ndarray:
+    """(BATCH, m, m) float32: BATCH different masked S, stream 0's with
+    every row masked (S = I), the others using about 0.1 to 0.9 of their
+    rows."""
+    return np.stack([np.eye(m, dtype=np.float32)] + [
+        masked_s(m, seed + b, frac)
+        for b, frac in enumerate(np.linspace(0.1, 0.9, BATCH - 1))])
+
+
+# the S-inverse's batched launch: the large map's M = 2F = 336, and an odd M
+SINV_BATCH_M = (336, 337)
+
+
+def check_sinv_batched(failures, dev):
+    """The S-inverse's one launch set over BATCH streams' different S
+    (sinv_batch) against BATCH single launches, bit for bit, at each of
+    SINV_BATCH_M, and the all-masked stream exactly I; returns the launch
+    at M = 336 for the timing (the ``sinv`` row's ``batch8``)."""
+    timed = None
+    for m in SINV_BATCH_M:
+        S = torch.tensor(sinv_batch(m, m), device=dev)
+        X, info = sinv.sinv_cuda(S)
+        same = all(torch.equal(X[b], sinv.sinv_cuda(S[b])[0])
+                   for b in range(BATCH))
+        check(failures, same and bool(torch.equal(
+            X[0], torch.eye(m, device=dev))) and not bool(info.any()),
+              f"sinv: one launch set over {BATCH} masked S at M = {m} "
+              f"bit-identical to {BATCH} single launches, the all-masked "
+              "stream exactly I, no non-positive pivot")
+        if timed is None:
+            timed = (lambda S=S: sinv.sinv_cuda(S))
+    return timed
 
 
 def sinv_row(S: torch.Tensor, err: float) -> dict:
@@ -2035,7 +2113,7 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     print(f"  profiled run vs the main run: max |difference| {same_run:.3e}",
           flush=True)
 
-    # a fresh engine resumes the frame-100 checkpoint and runs to the end
+    # a fresh engine resumes the frame-50 checkpoint and runs to the end
     resumed = SlamEngine(str(path))
     resumed.resume(str(ckpt))
     for f in frames[LARGE_CKPT_AT + 1:]:
@@ -3414,6 +3492,7 @@ def phase_batch(cfg: SlamConfig, failures: list) -> dict:
     print_device(dev_ms, kernels_us)
 
     sweep = batch_sweep(failures, runtime)
+    configs = batch_configs(failures)
     return dict(B=BATCH, frames=T_BATCH, launches=launches,
                 elapsed_s=elapsed,
                 stream_fps=BATCH * T_BATCH / elapsed, add_frames=add_frames,
@@ -3422,7 +3501,381 @@ def phase_batch(cfg: SlamConfig, failures: list) -> dict:
                 sync_sites=dict(sites), single_gap_m=gaps,
                 single_masks_same=masks, replays=replays,
                 phase_ms=phase_ms, kernels_us=kernels_us, device_ms=dev_ms,
-                sweep=sweep)
+                sweep=sweep, configs=configs)
+
+
+# ------------------------------------------ phase 12: the other configurations
+
+BATCH_NEW = 4                 # streams of each other configuration's run
+T_BATCH_NEW = 21              # its frames: init + 20 steps
+BATCH_NEW_WARM = 4            # frames of its warm-up run
+BATCH_NEW_SYNC = 10           # batched frames of its sync debug run
+BATCH_NEW_PROFILED = 2        # batched frames of the S-inverse's profile
+# the kernels each frame of a single-stream run launches as often as a
+# batched frame of B streams (init (A) and (B) run when any stream adds)
+BATCH_PER_FRAME_KERNELS = ("predict", "measure", "measure_quirks", "update",
+                           "sinv", "star", "star_direct", "brief",
+                           "brief_generic", "cholsolve")
+
+
+def large_map_config() -> SlamConfig:
+    """The config file of phase 6 (MaxMapSize 960: F = 168, N = 1024),
+    sized as SlamEngine sizes it."""
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "large_map_config.yml"
+    path.write_text(LARGE_MAP_CONFIG)
+    cfg = load_config(str(path))
+    return dataclasses.replace(cfg, max_features=auto_max_features(cfg.ekf))
+
+
+def batch_new_configs() -> dict:
+    """Every configuration the batched step takes beyond the s3 profile,
+    at full width with its own defaults: the other front-end profiles
+    (phase 8's), NCC (phase 9's), the parity mode on the s3 profile with
+    1000 hypotheses, and the large map."""
+    out = {f"{d}/{e}": profile_config(d, e) for d, e in PROFILE_PAIRS}
+    out["NCC"] = ncc_config()
+    out["parity"] = dataclasses.replace(
+        SlamConfig(detector=DetectorConfig(kind="STAR")),
+        max_hypotheses=1000, **PARITY)
+    out["large map"] = large_map_config()
+    return out
+
+
+@contextlib.contextmanager
+def vmap_fallbacks(counts: collections.Counter):
+    """Count, by op, vmap's per-sample fallbacks (an op with no batching
+    rule, run once a stream) while the block runs, from the warning
+    functorch gives for each when asked to."""
+    enable = torch._C._functorch._set_vmap_fallback_warning_enabled
+    enable(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        enable(False)
+    for w in caught:
+        m = re.search(r"batching rule for (\S+?)\.\s", str(w.message))
+        if m:
+            counts[m.group(1)] += 1
+
+
+def check_fallback_counter(failures) -> None:
+    """The counter sees a fallback: ``torch.histc`` has no batching rule."""
+    counts: collections.Counter = collections.Counter()
+    with vmap_fallbacks(counts):
+        torch.func.vmap(lambda a: torch.histc(a, 4))(
+            torch.rand(3, 8, device="cuda"))
+    check(failures, counts.get("aten::histc", 0) >= 1,
+          f"the fallback counter sees vmap(torch.histc)'s ({dict(counts)})")
+
+
+def run_batch_config(failures, name: str, cfg: SlamConfig,
+                     gpu: torch.Tensor) -> dict:
+    """One configuration through the batched step at B = BATCH_NEW over
+    ``gpu`` (B, T, H, W): launches against a single-stream frame's, host
+    syncs, each stream against its own single-stream run on the card,
+    tracking health, stream-frames/s beside the single stream, vmap's
+    fallbacks by op, and for the chain's S-inverse its device launches by
+    kernel name."""
+    t_start = time.perf_counter()
+    runtime = SlamRuntime(cfg)
+    B, T = gpu.shape[:2]
+    S = T - 1
+    print(f"  -- {name}: {B} streams of {T} frames, {cfg.detector.kind} + "
+          f"{cfg.descriptor.kind}, matcher {cfg.matcher}, F = "
+          f"{cfg.max_features}, N = {cfg.padded_state_dim}, quirks "
+          f"{cfg.reference_quirks}, parity visit {cfg.ransac_parity_visit}, "
+          f"max_hypotheses {cfg.max_hypotheses}", flush=True)
+    fallbacks: collections.Counter = collections.Counter()
+    with vmap_fallbacks(fallbacks):
+        st = batch_runner.make_batch_states(runtime, B)
+        st = batch_runner.make_batched_init(runtime)(st, gpu[:, 0])
+        batch_runner.scan_batched_sequences(runtime, st,
+                                            gpu[:, 1:BATCH_NEW_WARM])
+        torch.cuda.synchronize()
+
+        # the main path: every launch counter at 0 just before, read just
+        # after
+        reset_launches()
+        t0 = time.perf_counter()
+        states = batch_runner.make_batch_states(runtime, B, seeds=range(B))
+        states = batch_runner.make_batched_init(runtime)(states, gpu[:, 0])
+        states, recs = batch_runner.scan_batched_sequences(runtime, states,
+                                                           gpu[:, 1:])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+    recs = to_numpy(recs)
+    check(failures, bool(torch.isfinite(states.x).all())
+          and bool(torch.isfinite(states.P).all()),
+          f"{name}: final x and P finite")
+
+    # each stream's own single-stream run on the card: its launches, its
+    # time, its trajectory
+    gaps, masks, single_s, single_launches = [], [], [], None
+    for b in range(B):
+        reset_launches()
+        t0 = time.perf_counter()
+        _, rb = scan_runner.run_sequence_on_device(runtime, gpu[b])
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        if b == 0:
+            single_launches = read_launches()
+        gaps.append(float(np.linalg.norm(
+            rb.x_cam[:, 0:3].astype(np.float64) - recs.x_cam[:, b, 0:3],
+            axis=1).max()))
+        masks.append(float(np.mean([
+            np.array_equal(rb.inliers[t], recs.inliers[t, b])
+            and np.array_equal(rb.visible[t], recs.visible[t, b])
+            for t in range(S)])))
+    per_frame = {k: launches[k] / S for k in launches if launches[k]}
+    same = {k: (launches[k], single_launches[k])
+            for k in BATCH_PER_FRAME_KERNELS}
+    check(failures, all(a == b for a, b in same.values()),
+          f"{name}: each kernel launched as often by {B} batched streams as "
+          f"by one stream (batched, single): { {k: v for k, v in same.items() if v[0] or v[1]} }")
+    chain = cfg.reference_quirks or not update_kernel.update_kernel_fits(
+        cfg.padded_state_dim, 2 * cfg.max_features)
+    want_sinv, want_update = (2 * S, 0) if chain else (0, 2 * S)
+    check(failures, launches["sinv"] == want_sinv
+          and launches["update"] == want_update,
+          f"{name}: the S-inverse launched {launches['sinv']} times "
+          f"({want_sinv}: once an update phase), the fused update "
+          f"{launches['update']} ({want_update})")
+    check(failures, 1 <= launches["init"] == launches["init_augment"] <= T,
+          f"{name}: init (A) and (B) together on the init and on frames "
+          f"where a stream adds ({launches['init']}, at most {T})")
+
+    health = []
+    for b in range(B):
+        matched = recs.total_matches[:, b].astype(np.int64)
+        inl = (recs.li_inliers[:, b] + recs.hi_inliers[:, b]).astype(
+            np.int64)
+        health.append(dict(healthy=float(np.mean(inl >= 0.5 * matched)),
+                           mean_matched=float(matched.mean())))
+    check(failures, all(h["healthy"] >= 0.9 and h["mean_matched"] >= 20
+                        for h in health),
+          f"{name}: tracking healthy on every stream: " + ", ".join(
+              f"{h['healthy']:.3f}/{h['mean_matched']:.1f}" for h in health))
+    check(failures, max(gaps) <= LIVE_REPLAY_TOL
+          and min(masks) >= LIVE_MASKS_SAME,
+          f"{name}: every stream within {LIVE_REPLAY_TOL} m of its "
+          f"single-stream run (largest {max(gaps):.3e}), masks identical on "
+          f">= {LIVE_MASKS_SAME} of frames (least {min(masks):.3f})")
+
+    # host syncs a batched frame, from a state already on the card
+    sites, sync_s = count_syncs(lambda: batch_runner.scan_batched_sequences(
+        runtime, states, gpu[:, 1:1 + BATCH_NEW_SYNC]))
+    syncs = sum(sites.values())
+    allowed = {source_line(batch_runner, ".tolist()")}
+    check(failures, syncs / BATCH_NEW_SYNC <= 1.0 and set(sites) <= allowed,
+          f"{name}: host syncs a batched frame {syncs / BATCH_NEW_SYNC:.3f}"
+          f" <= 1, all at {sorted(allowed)} ({dict(sites)})")
+
+    out = dict(B=B, frames=T, elapsed_s=elapsed,
+               stream_fps=B * T / elapsed,
+               single_fps=T / float(np.mean(single_s)),
+               launches=launches, launches_per_frame=per_frame,
+               single_launches=single_launches, syncs=syncs,
+               syncs_per_frame=syncs / BATCH_NEW_SYNC,
+               sync_sites=dict(sites), single_gap_m=gaps,
+               single_masks_same=masks, health=health,
+               fallbacks=dict(fallbacks))
+    if chain:
+        # the S-inverse's batched launch set, by kernel name
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            batch_runner.scan_batched_sequences(
+                runtime, states, gpu[:, 1:1 + BATCH_NEW_PROFILED])
+            torch.cuda.synchronize()
+        kern = kernel_device_us(prof.key_averages(), BATCH_NEW_PROFILED,
+                                SINV_BATCH_NAMES)
+        check(failures, set(kern) == set(SINV_BATCH_NAMES) and all(
+            v["calls_per_frame"] == 2 for v in kern.values()),
+              f"{name}: each of the S-inverse's six batched kernels twice a "
+              "batched frame (" + ", ".join(
+                  f"{k} {v['calls_per_frame']:.2f}" for k, v in kern.items())
+              + ")")
+        out["sinv_kernels_us"] = kern
+    out["x_single"] = out["stream_fps"] / out["single_fps"]
+    print(f"  {name}: {out['stream_fps']:.2f} stream-frames/s at B = {B} "
+          f"({elapsed:.4f} s), single stream {out['single_fps']:.2f} "
+          f"frames/s ({out['x_single']:.2f}x); launches a batched frame "
+          f"{ {k: round(v, 3) for k, v in per_frame.items()} }; "
+          f"{syncs / BATCH_NEW_SYNC:.3f} host syncs a batched frame; vs "
+          f"single-stream runs: gap max {max(gaps):.3e} m, masks "
+          f"{min(masks):.3f}; vmap fallbacks {dict(fallbacks)}; "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return out
+
+
+def batch_configs(failures) -> dict:
+    """Each configuration of batch_new_configs at B = BATCH_NEW over
+    T_BATCH_NEW frames, stream b sliding 1 + b % 3 px a frame over its own
+    texture (phase 12's frames)."""
+    check_fallback_counter(failures)
+    gpu = torch.tensor(batch_frames(BATCH_NEW, T_BATCH_NEW),
+                       device="cuda")
+    out = {name: run_batch_config(failures, name, cfg, gpu)
+           for name, cfg in batch_new_configs().items()}
+    total = collections.Counter()
+    for v in out.values():
+        total.update(v["fallbacks"])
+    print(f"  vmap per-sample fallbacks on torch {torch.__version__}, by op "
+          f"over every configuration's run: {dict(total) or 'none'}",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 13
+
+T_VIZ = 21                   # frames of the rendered engine run
+VIZ3D_EVERY = 10
+
+
+def phase_viz(cfg: SlamConfig, failures: list) -> dict:
+    """The s3 SlamEngine with render, render_debug and viz3d_every over
+    T_VIZ frames into chiprun_out/viz: the JAX engine's files, each
+    overlay against the port's draw_* applied on the CPU to that frame's
+    record, the host syncs a rendered frame, the record's read-back and
+    snapshot_from_state against the same function on the CPU."""
+    print("== phase 13: viz", flush=True)
+    missing = [m for m in ("cv2", "matplotlib")
+               if importlib.util.find_spec(m) is None]
+    for m in missing:
+        print(f"  {m} is not installed on this machine: "
+              + ("no overlay is rendered" if m == "cv2"
+                 else "no 3D map view is rendered"), flush=True)
+    render = "cv2" not in missing
+    every = VIZ3D_EVERY if "matplotlib" not in missing else 0
+    out_dir = OUT / "viz"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    frames = live_frames(T_VIZ)
+    S = T_VIZ - 1
+
+    def engine_run(path, **kw):
+        engine = SlamEngine(cfg, output_path=path, **kw)
+        recs = []
+        step = engine.runtime.step
+
+        def recorded(state, gray):
+            state, rec = step(state, gray)
+            recs.append(rec)
+            return state, rec
+
+        engine.runtime.step = recorded
+        return engine, recs
+
+    run_sequence(engine_run(None)[0], frames[:6])      # warm-up
+    torch.cuda.synchronize()
+    engine, recs = engine_run(str(out_dir), render=render,
+                              render_debug=render, viz3d_every=every)
+    t0 = time.perf_counter()
+    run_sequence(engine, frames)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    engine.close()
+    plain, _ = engine_run(None)
+    t0 = time.perf_counter()
+    run_sequence(plain, frames)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    files = sorted(str(f.relative_to(out_dir)) for f in out_dir.rglob("*")
+                   if f.is_file())
+    want = []
+    if render:
+        want += [f"{i:05d}.png" for i in range(1, S + 1)] + [
+            "videoOutput.mp4", "debug/ransacDebug.mp4"] + [
+            f"debug/{i:05d}.png" for i in range(1, S + 1)]
+    if every:
+        want += [f"map3d_{i:05d}.png" for i in range(every, S + 1, every)]
+    check(failures, set(want) <= set(files),
+          f"the JAX engine's files: {len(want)} expected, "
+          f"{len(set(want) & set(files))} written ({len(files)} in all)")
+
+    # each overlay against the port's draw_* on the CPU, on that frame's
+    # card record
+    differing = 0
+    if render:
+        import cv2
+
+        from openekfmonoslam_tpu_torch.viz import draw
+        for t, rec in enumerate(recs, start=1):
+            r = {k: v.cpu().numpy() for k, v in rec._asdict().items()}
+            gray = frames[t]
+            for name, img in (
+                    (f"{t:05d}.png", draw.draw_prediction_overlay(
+                        gray, r["pred_uv"], r["pred_S"], r["visible"],
+                        r["z"], r["matched"])),
+                    (f"debug/{t:05d}.png", draw.draw_ransac_debug(
+                        gray, r["z"], r["matched"], r["inliers"],
+                        r["new_uv"], r["new_ok"]))):
+                differing += not np.array_equal(
+                    cv2.imread(str(out_dir / name)), img)
+        check(failures, differing == 0,
+              f"each of the {2 * S} overlays equals draw_* on the CPU "
+              f"applied to its frame's record ({differing} differ)")
+
+    # the record's read-back: the overlays' fields in the summary's copy
+    engine2 = SlamEngine(cfg)
+    engine2.init(frames[0])
+    engine2.state, rec = engine2.runtime.step(engine2.state,
+                                              engine2._upload(frames[1]))
+    _, drawn = engine2._summary(rec, draw=True)
+    same = all(np.array_equal(drawn[k], getattr(rec, k).cpu().numpy())
+               for k in engine_mod.DRAW_FIELDS)
+    check(failures, same and len(drawn) == len(engine_mod.DRAW_FIELDS),
+          "the drawing fields read back in the summary's copy equal the "
+          "record's")
+
+    # host syncs a rendered frame against an unrendered one
+    def syncs_of(**kw):
+        eng, _ = engine_run(str(OUT / "viz_syncs") if kw else None, **kw)
+        eng.init(frames[0])
+        torch.cuda.synchronize()
+        sites, _ = count_syncs(lambda: [eng.step(f) for f in frames[1:]])
+        eng.close()
+        return sites
+
+    rendered = syncs_of(render=render, render_debug=render,
+                        viz3d_every=every)
+    unrendered = syncs_of()
+    shutil.rmtree(OUT / "viz_syncs", ignore_errors=True)
+    n_r, n_u = sum(rendered.values()), sum(unrendered.values())
+    n_views = S // every if every else 0
+    check(failures, n_r == n_u + n_views,
+          f"host syncs: {n_r / S:.3f} a rendered frame against {n_u / S:.3f}"
+          f" an unrendered one, {n_views} 3D views at one each "
+          f"({dict(rendered)}; {dict(unrendered)})")
+
+    # snapshot_from_state on the card against the CPU, on the final state
+    from openekfmonoslam_tpu_torch.viz import viewer3d
+    snap_sites, _ = count_syncs(lambda: viewer3d.snapshot_from_state(
+        engine.state))
+    card = viewer3d.snapshot_from_state(engine.state)
+    host = viewer3d.snapshot_from_state(
+        type(engine.state)(*(f.cpu() for f in engine.state)))
+    err = max(float(np.abs(np.asarray(a, np.float64)
+                           - np.asarray(b, np.float64)).max()
+                    / max(1.0, float(np.abs(np.asarray(b, np.float64)
+                                            ).max())))
+              for a, b in zip(card, host))
+    check(failures, err <= 1e-5 and sum(snap_sites.values()) == 1,
+          f"snapshot_from_state on the card within 1e-5 (relative) of the "
+          f"CPU's ({err:.3e}), in one read-back ({dict(snap_sites)})")
+    out = dict(frames=T_VIZ, missing=missing, files=len(files),
+               fps_rendered=T_VIZ / elapsed, fps_unrendered=T_VIZ / plain_s,
+               overlays_differing=differing,
+               syncs_per_rendered_frame=n_r / S,
+               syncs_per_unrendered_frame=n_u / S,
+               sync_sites_rendered=dict(rendered), snapshot_rel_err=err)
+    print(f"  {T_VIZ} frames rendered at {out['fps_rendered']:.2f} frames/s "
+          f"({out['fps_unrendered']:.2f} unrendered); {len(files)} files; "
+          f"{n_r / S:.3f} host syncs a rendered frame, "
+          f"{n_u / S:.3f} unrendered", flush=True)
+    return out
 
 
 def main(argv: list) -> int:
@@ -3475,6 +3928,15 @@ def main(argv: list) -> int:
         print(f"batch only: {time.perf_counter() - T_START:.1f} s",
               flush=True)
         return 0
+    if "--viz-only" in argv:
+        # phases 1 and 13 alone: the rendering options; no result line
+        failures = []
+        viz = phase_viz(live_cfg, failures)
+        end_phase("viz", failures)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "viz.json").write_text(json.dumps(viz, indent=1))
+        print(f"viz only: {time.perf_counter() - T_START:.1f} s", flush=True)
+        return 0
     if "--engine-features-only" in argv:
         # phases 1 and 9-11 alone: NCC, loop closure, serve; no result line
         features = phase_engine_features(live_cfg)
@@ -3507,6 +3969,7 @@ def main(argv: list) -> int:
     print("  the S-inverse on the path's own S (M = "
           f"{rows['sinv']['M']}, {rows['sinv']['used_rows']} used rows, cond "
           f"{rows['sinv']['cond']:.3e}):", flush=True)
+    rows["sinv"]["batch8"] = rows.pop("sinv_batch8_fn")
     time_row("sinv", rows["sinv"])
 
     failures = []
@@ -3519,6 +3982,9 @@ def main(argv: list) -> int:
     failures = []
     batch = phase_batch(live_cfg, failures)
     end_phase("batch", failures)
+    failures = []
+    viz = phase_viz(live_cfg, failures)
+    end_phase("viz", failures)
 
     T = T_FRAMES
     # each kernel's launches come from the path that runs it: the s3 live
@@ -3561,8 +4027,12 @@ def main(argv: list) -> int:
             # one launch over 8 streams (phase 2, CUDA graph; null where
             # the kernel has no batched launch)
             "launches_batch": batch["launches"][name],
+            # phase 12's runs of the other configurations at B = 4
+            "launches_batch_configs": {k: v["launches"][name]
+                                       for k, v in batch["configs"].items()},
             "batch8_ms": row["batch8_ms"]})
-    extra = ("sinv_spd336", "update_fused_n1024", "update_chain_n1024",
+    extra = ("sinv_spd336", "sinv_masked336", "update_fused_n1024",
+             "update_chain_n1024",
              "cholsolve_336x1024", "brief_generic_256", "predict_n1024",
              "floor")
     report.update(kernels=kernels, update_checks=rows["update"]["checks"],
@@ -3579,7 +4049,7 @@ def main(argv: list) -> int:
                   other_rows={k: rows[k] for k in extra},
                   cholsolve_checks=rows["cholsolve"]["checks"],
                   parity=parity, profiles=profiles,
-                  engine_features=features, batch=batch,
+                  engine_features=features, batch=batch, viz=viz,
                   seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3611,6 +4081,12 @@ def main(argv: list) -> int:
                       for B in BATCH_SWEEP)
           + f" (single stream {sw['single_fps_before']:.2f}, "
           f"{sw['single_fps_after']:.2f})", flush=True)
+    print(f"batch, B = {BATCH_NEW} over {T_BATCH_NEW} frames: " + "; ".join(
+        f"{k} {v['stream_fps']:.2f} stream-frames/s (single stream "
+        f"{v['single_fps']:.2f})" for k, v in batch["configs"].items())
+        + f"; viz: {viz['fps_rendered']:.2f} frames/s rendered, "
+        f"{viz['syncs_per_rendered_frame']:.3f} syncs a rendered frame",
+        flush=True)
     print("profiles: " + "; ".join(
         f"{k} {v['fps']:.2f} frames/s over {v['frames']} frames, BRIEF "
         f"{v['launches']['brief'] / v['frames']:.2f} a frame"

@@ -5,8 +5,9 @@
 SOURCE is a directory of %05d-numbered PNG frames (FileSequenceImage
 Generator semantics, main.cpp:50), a video file, or ``camera[:N]`` for a
 live capture device.  Runs EKF init + step over the sequence (main.cpp:
-123-167), writes records.jsonl, log.txt and output.yml, and emits the
-resultReader MATLAB report.  It runs on the first CUDA device; ``--device
+123-167), writes records.jsonl, log.txt and output.yml (+ rendered
+overlays with --render and --render-debug, 3D map views with --viz3d),
+and emits the resultReader MATLAB report.  It runs on the first CUDA device; ``--device
 cpu`` runs the plain versions on the CPU.
 
 Modes:
@@ -22,17 +23,6 @@ import dataclasses
 import json
 import os
 import time
-
-# options of the JAX CLI that the port does not run yet, and where they
-# stand in ROADMAP.md
-_NOT_PORTED = {
-    "render": "--render: rendering overlays are not ported yet "
-              "(ROADMAP Queue 1 item 19, viz/)",
-    "render_debug": "--render-debug: rendering overlays are not ported yet "
-                    "(ROADMAP Queue 1 item 19, viz/)",
-    "viz3d": "--viz3d: the 3D map view is not ported yet "
-             "(ROADMAP Queue 1 item 19, viz/)",
-}
 
 
 def build_source(spec: str, begin: int, end: int,
@@ -75,9 +65,11 @@ def main(argv=None):
     ap.add_argument("--mode", choices=("interactive", "scan"),
                     default="interactive")
     ap.add_argument("--render", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 19)")
+                    help="write overlay PNGs + video (EKF.cpp:294-305)")
     ap.add_argument("--render-debug", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 19)")
+                    help="write RANSAC inlier/outlier + new-feature debug "
+                         "overlays to OUTPUT/debug (DEBUG_SHOW_RANSAC_INFO"
+                         "/DEBUG_SHOW_NEW_FEATURES, EKF.cpp:198-222,542-544)")
     ap.add_argument("--max-features", type=int, default=None)
     ap.add_argument("--matcher", choices=("descriptor", "ncc"), default=None,
                     help="guided-matching backend: detected-keypoint "
@@ -110,14 +102,14 @@ def main(argv=None):
     ap.add_argument("--relocalize-after", type=int, default=0,
                     help="auto map-reset after N consecutive lost frames")
     ap.add_argument("--viz3d", type=int, default=0, metavar="N",
-                    help="not ported yet (ROADMAP Queue 1 item 19)")
+                    help="write a 3D map/trajectory debug view "
+                         "(map3d_%%05d.png) every N frames (the "
+                         "reference's PCL viewer, Draw.h:88-100, rendered "
+                         "headlessly)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA device; "
                          "'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    for key, msg in _NOT_PORTED.items():
-        if getattr(args, key):
-            ap.error(msg)
 
     overrides = {}
     if args.max_features:
@@ -188,10 +180,12 @@ def main(argv=None):
         return
 
     engine = SlamEngine(args.config, output_path=args.output,
+                        render=args.render, render_debug=args.render_debug,
                         phase_timing=args.phase_timing,
                         keyframe_every=args.keyframe_every,
                         relocalize_after=args.relocalize_after,
-                        device=args.device, **overrides)
+                        viz3d_every=args.viz3d, device=args.device,
+                        **overrides)
     ckpt_path = (os.path.join(args.output, "checkpoint.npz")
                  if args.output else "checkpoint.npz")
     if args.resume:

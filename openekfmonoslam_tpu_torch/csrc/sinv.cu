@@ -1,5 +1,5 @@
-// The SPD inverse S^-1 by a compacted Cholesky factorization, as four
-// launches on one stream with no host synchronisation.
+// The SPD inverse S^-1 by a compacted Cholesky factorization, as a memset
+// and six launches on one stream with no host synchronisation.
 //
 // Replaces the TPU kernel _sinv_kernel / sinv_pallas
 // (openekfmonoslam_tpu/ops/sinv.py:169,177), the standalone form of
@@ -43,6 +43,15 @@
 // (c) ceil(Mu / 32) block rows in every CTA, (d)-(f) are one tiled pass
 // each over Mu x Mu; with all M rows used (a dense S) the one-SM
 // factorization's M^3 / 6 multiply-adds dominate.
+//
+// B streams' S stacked (a batched launch, BATCHED): the same memset and six
+// launches with the stream as blockIdx.y, so B factor CTAs run side by side
+// on B SMs.  Each stream has its own scratch block (L, Dinv, W, X, R, Y at
+// their single-stream offsets, fs floats a stream), its own idx and pos (M
+// ints each) and meta (2 ints), and compacts its own mask; one memset zeroes
+// the B streams' flags.  Each stream runs exactly the single-stream code on
+// its own pointers, so its bits are those of its single launch.  The single
+// launch (BATCHED false) compiles the offsets out.
 
 #include "spd_core.cuh"
 
@@ -58,6 +67,13 @@ constexpr int FLAG_ROWS = 8;             // rows of S a flags CTA scans
 
 enum Product { kGram, kResidual, kRefine };
 
+// The stream of a batched launch's CTA.
+template <bool BATCHED>
+__device__ __forceinline__ long long stream_index() {
+    if constexpr (BATCHED) return blockIdx.y;
+    return 0;
+}
+
 // Dot2 step: (s, c) += a * b with the product's and the sum's rounding
 // errors carried in c; no contraction by nvcc.
 __device__ __forceinline__ void dot2(float& s, float& c, float a, float b) {
@@ -72,8 +88,14 @@ __device__ __forceinline__ void dot2(float& s, float& c, float a, float b) {
 
 // flags[i] = 1 when row i or column i of S differs from e_i; flags zeroed
 // before the launch.  A warp a row of S, FLAG_ROWS rows a CTA.
+template <bool BATCHED>
 __global__ void __launch_bounds__(FLAG_ROWS * 32)
 sinv_flags(const float* __restrict__ S, int* __restrict__ flags, int M) {
+    if constexpr (BATCHED) {
+        const long long s = stream_index<BATCHED>();
+        S += s * M * M;
+        flags += s * M;
+    }
     const int i = blockIdx.x * FLAG_ROWS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (i >= M) return;
@@ -90,11 +112,21 @@ sinv_flags(const float* __restrict__ S, int* __restrict__ flags, int M) {
 // meta: [0] Mu, [1] non-positive pivots (info); L packed tri(M) floats;
 // Dinv ceil(M / NB) NB x NB floats; idx and pos M ints each, pos holding
 // the flags of sinv_flags on entry
+template <bool BATCHED>
 __global__ void __launch_bounds__(spd::FACTOR_THREADS)
 sinv_factor(const float* __restrict__ S, float* L, float* __restrict__ Dinv,
             int* __restrict__ idx, int* __restrict__ pos,
-            int* __restrict__ meta, int M, int smem_bytes) {
+            int* __restrict__ meta, int M, int smem_bytes, long long fs) {
     extern __shared__ float4 smem4[];
+    if constexpr (BATCHED) {
+        const long long s = stream_index<BATCHED>();
+        S += s * M * M;
+        L += s * fs;
+        Dinv += s * fs;
+        idx += s * M;
+        pos += s * M;
+        meta += 2 * s;
+    }
     // each thread reads the flag of its row before it writes the row's
     // compact index over it
     spd::compact_and_factor((float*)smem4, smem_bytes,
@@ -104,12 +136,21 @@ sinv_factor(const float* __restrict__ S, float* L, float* __restrict__ Dinv,
 
 // One CTA a slab of SLAB columns c0.. of the identity: W = L^-1 E, written
 // to W (Mu x Mu, row-major, compact indices).
+template <bool BATCHED>
 __global__ void __launch_bounds__(SOLVE_THREADS)
 sinv_solve(const float* __restrict__ L, const float* __restrict__ Dinv,
            const int* __restrict__ meta, float* __restrict__ W,
-           float* __restrict__ Yglobal, int in_smem) {
+           float* __restrict__ Yglobal, int in_smem, long long fs) {
     extern __shared__ float smem[];
     __shared__ spd::SolveSmem sm;
+    if constexpr (BATCHED) {
+        const long long s = stream_index<BATCHED>();
+        L += s * fs;
+        Dinv += s * fs;
+        W += s * fs;
+        Yglobal += s * fs;
+        meta += 2 * s;
+    }
     const int n = meta[0];
     const int c0 = blockIdx.x * SLAB;
     if (c0 >= n) return;
@@ -134,15 +175,27 @@ sinv_solve(const float* __restrict__ L, const float* __restrict__ Dinv,
 //   kResidual  R = I - S_u X in Dot2 (S_u gathered from S through idx)
 //   kRefine    X + X R, scattered to out[idx, idx]; every CTA also writes
 //              a share of the identity rows and columns of out
-// The grid covers ceil(M / TS)^2 tiles; those beyond Mu exit early.
-template <int MODE>
+// The grid covers ceil(M / TS)^2 tiles; those beyond Mu exit early.  A
+// batched launch offsets S and out by M x M a stream, the scratch (A, B
+// and the other C) by fs.
+template <int MODE, bool BATCHED>
 __global__ void __launch_bounds__(TS * TS)
 sinv_product(const float* __restrict__ S, const float* __restrict__ A,
              const float* __restrict__ B, float* __restrict__ C,
              const int* __restrict__ idx, const int* __restrict__ pos,
-             const int* __restrict__ meta, int M) {
+             const int* __restrict__ meta, int M, long long fs) {
     __shared__ float As[TS][TS + 1];     // As[k][i] = A(i0 + i, k0 + k)
     __shared__ float Bs[TS][TS];         // Bs[k][j] = B(k0 + k, j0 + j)
+    if constexpr (BATCHED) {
+        const long long s = stream_index<BATCHED>();
+        S += s * M * M;
+        if (MODE != kResidual) A += s * fs;
+        B += s * fs;
+        C += MODE == kRefine ? s * M * M : s * fs;
+        idx += s * M;
+        pos += s * M;
+        meta += 2 * s;
+    }
     const int n = meta[0];
     const int tx = threadIdx.x % TS, ty = threadIdx.x / TS;
     if (MODE == kRefine) {
@@ -193,51 +246,78 @@ sinv_product(const float* __restrict__ S, const float* __restrict__ A,
     }
 }
 
-}  // namespace
-
-// out (M, M) = S^-1.  Scratch (caller-owned): L tri(M) floats, Dinv
-// ceil(M / 32) * 32 * 32 floats, W, X and R M x M floats each, Y
-// (ceil(M / 8) x M x 8 floats, used only when a slab does not fit
-// SOLVE_SMEM_MAX), idx and pos M ints each; info (2,) int32 gets Mu and
-// the non-positive pivots.  Returns the first failing launch's
-// cudaError_t, or 0.
-EKF_EXPORT int ekf_sinv(const float* S, float* out, float* L, float* Dinv,
-                        float* W, float* X, float* R, float* Y, int* idx,
-                        int* pos, int* info, int M, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (M < 1) return (int)cudaErrorInvalidValue;
+// The memset and the six launches, over B streams (BATCHED) or one.
+template <bool BATCHED>
+int launch_sinv(const float* S, float* out, float* L, float* Dinv, float* W,
+                float* X, float* R, float* Y, int* idx, int* pos, int* info,
+                int M, int B, long long fs, cudaStream_t st) {
     // the first call raises the dynamic shared memory limits; later calls
     // (possibly inside a CUDA graph capture) only launch
     static int optin = 0;
-    int err = spd::raise_smem_limits((const void*)sinv_factor,
-                                     (const void*)sinv_solve, SOLVE_SMEM_MAX,
-                                     &optin);
+    int err = spd::raise_smem_limits((const void*)sinv_factor<BATCHED>,
+                                     (const void*)sinv_solve<BATCHED>,
+                                     SOLVE_SMEM_MAX, &optin);
     if (err) return err;
-    // the identity-row flags go to pos, which the factor then overwrites
-    if ((err = (int)cudaMemsetAsync(pos, 0, (size_t)M * sizeof(int), st)))
+    // the identity-row flags go to pos, which the factor then overwrites:
+    // one memset over the B streams' flags
+    if ((err = (int)cudaMemsetAsync(pos, 0, (size_t)B * M * sizeof(int),
+                                    st)))
         return err;
-    sinv_flags<<<(M + FLAG_ROWS - 1) / FLAG_ROWS, FLAG_ROWS * 32, 0, st>>>(
-        S, pos, M);
+    sinv_flags<BATCHED><<<dim3((M + FLAG_ROWS - 1) / FLAG_ROWS, B),
+                          FLAG_ROWS * 32, 0, st>>>(S, pos, M);
     if ((err = ekf_last_error())) return err;
     const size_t fsmem = spd::factor_smem_bytes(M, optin);
-    sinv_factor<<<1, spd::FACTOR_THREADS, fsmem, st>>>(S, L, Dinv, idx, pos,
-                                                       info, M, (int)fsmem);
+    sinv_factor<BATCHED><<<dim3(1, B), spd::FACTOR_THREADS, fsmem, st>>>(
+        S, L, Dinv, idx, pos, info, M, (int)fsmem, fs);
     if ((err = ekf_last_error())) return err;
 
     const size_t ysmem = (size_t)M * SLAB * sizeof(float);
     const int in_smem = ysmem <= (size_t)SOLVE_SMEM_MAX;
-    sinv_solve<<<(M + SLAB - 1) / SLAB, SOLVE_THREADS, in_smem ? ysmem : 0,
-                 st>>>(L, Dinv, info, W, Y, in_smem);
+    sinv_solve<BATCHED><<<dim3((M + SLAB - 1) / SLAB, B), SOLVE_THREADS,
+                          in_smem ? ysmem : 0, st>>>(L, Dinv, info, W, Y,
+                                                     in_smem, fs);
     if ((err = ekf_last_error())) return err;
 
     const int tiles = (M + TS - 1) / TS;
-    sinv_product<kGram><<<tiles * tiles, TS * TS, 0, st>>>(
-        S, W, W, X, idx, pos, info, M);
+    const dim3 grid(tiles * tiles, B);
+    sinv_product<kGram, BATCHED><<<grid, TS * TS, 0, st>>>(
+        S, W, W, X, idx, pos, info, M, fs);
     if ((err = ekf_last_error())) return err;
-    sinv_product<kResidual><<<tiles * tiles, TS * TS, 0, st>>>(
-        S, nullptr, X, R, idx, pos, info, M);
+    sinv_product<kResidual, BATCHED><<<grid, TS * TS, 0, st>>>(
+        S, nullptr, X, R, idx, pos, info, M, fs);
     if ((err = ekf_last_error())) return err;
-    sinv_product<kRefine><<<tiles * tiles, TS * TS, 0, st>>>(
-        S, X, R, out, idx, pos, info, M);
+    sinv_product<kRefine, BATCHED><<<grid, TS * TS, 0, st>>>(
+        S, X, R, out, idx, pos, info, M, fs);
     return ekf_last_error();
+}
+
+}  // namespace
+
+// out = S^-1 for B streams' S stacked, (B, M, M) each.  Scratch (caller-
+// owned): B blocks of fs floats, each a stream's L tri(M) floats, Dinv
+// ceil(M / 32) * 32 * 32 floats, W, X and R M x M floats each and Y
+// (ceil(M / 8) x M x 8 floats, used only when a slab does not fit
+// SOLVE_SMEM_MAX), in that order; idx and pos B x M ints each; info B x 2
+// ints, each stream's Mu and non-positive pivots.  B = 1 launches the
+// single-stream kernels (fs unused).  Returns the first failing launch's
+// cudaError_t, or 0.
+EKF_EXPORT int ekf_sinv_batched(const float* S, float* out, float* L,
+                                float* Dinv, float* W, float* X, float* R,
+                                float* Y, int* idx, int* pos, int* info,
+                                int M, int B, long long fs, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (M < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+    if (B > 1)
+        return launch_sinv<true>(S, out, L, Dinv, W, X, R, Y, idx, pos, info,
+                                 M, B, fs, st);
+    return launch_sinv<false>(S, out, L, Dinv, W, X, R, Y, idx, pos, info, M,
+                              1, 0, st);
+}
+
+// One stream.
+EKF_EXPORT int ekf_sinv(const float* S, float* out, float* L, float* Dinv,
+                        float* W, float* X, float* R, float* Y, int* idx,
+                        int* pos, int* info, int M, void* stream) {
+    return ekf_sinv_batched(S, out, L, Dinv, W, X, R, Y, idx, pos, info, M,
+                            1, 0, stream);
 }

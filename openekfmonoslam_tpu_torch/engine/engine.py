@@ -32,6 +32,14 @@ recognition query against the older keyframes.  A keyframe frame reads
 back twice more (the candidates' match counts and the PnP's result); the
 graph lives on the engine's device and ``corrected_trajectory`` optimises
 it there.
+
+``render`` writes the prediction overlay (``%05d.png`` and
+``videoOutput.mp4``), ``render_debug`` the RANSAC and new-feature overlay
+(``debug/%05d.png`` and ``debug/ransacDebug.mp4``), and ``viz3d_every``
+the 3D map view (``map3d_%05d.png`` every N frames), all drawn on the host
+by ``viz/``.  The overlays' fields of the record ride in the packed
+summary's one copy, so a rendered frame reads back no more often than
+another; a 3D view reads back once more (``viewer3d.snapshot_from_state``).
 """
 
 from __future__ import annotations
@@ -55,12 +63,11 @@ from openekfmonoslam_tpu_torch.graph.loop_closure import (LoopCloser,
                                                           correct_trajectory)
 from openekfmonoslam_tpu_torch.io.sources import to_gray
 
-# where the JAX engine's options that are not ported yet stand in ROADMAP.md
-_VIZ = "viz/ (ROADMAP Queue 1 item 19)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
+# the record's fields that the overlays draw, in the order the packed
+# summary carries them
+DRAW_FIELDS = ("pred_uv", "pred_S", "visible", "z", "matched", "inliers",
+               "new_uv", "new_ok")
+SUMMARY_LEN = 13 + 169 + 7
 
 
 class SlamEngine:
@@ -71,10 +78,6 @@ class SlamEngine:
                  relocalize_after: int = 0, lost_matches_threshold: int = 4,
                  phase_timing: bool = False, viz3d_every: int = 0,
                  device=None, **overrides):
-        if render or render_debug:
-            raise _not_ported(f"rendering overlays, {_VIZ},")
-        if viz3d_every > 0:
-            raise _not_ported(f"the 3D map view, {_VIZ},")
         if isinstance(config, SlamConfig):
             cfg = config
         else:
@@ -126,6 +129,9 @@ class SlamEngine:
         self.output_path = output_path
         self._jsonl = None
         self._log = None
+        self._sink = None
+        self._debug_sink = None
+        self._map3d = None
         if output_path:
             os.makedirs(output_path, exist_ok=True)
             self._jsonl = open(os.path.join(output_path, "records.jsonl"),
@@ -135,19 +141,33 @@ class SlamEngine:
             # State.cpp:229-258)
             self._log = open(os.path.join(output_path, "log.txt"), "w")
             self._log.write(f"seed: {self.config.seed}\n")
+            if render:
+                from openekfmonoslam_tpu_torch.viz.draw import VideoSink
+                self._sink = VideoSink(output_path)
+            if render_debug:
+                from openekfmonoslam_tpu_torch.viz.draw import VideoSink
+                self._debug_sink = VideoSink(
+                    os.path.join(output_path, "debug"),
+                    video_name="ransacDebug.mp4")
+            # the 3D map debug channel (the reference's PCL viewer,
+            # Draw.h:88-100, rendered headlessly)
+            if viz3d_every > 0:
+                from openekfmonoslam_tpu_torch.viz.viewer3d import Map3DSink
+                self._map3d = Map3DSink(output_path, every=viz3d_every)
 
     # ------------------------------------------------------------------
-    def _upload(self, image: np.ndarray) -> torch.Tensor:
+    def _upload(self, gray_np: np.ndarray) -> torch.Tensor:
         """The gray frame on the engine's device; to the card through
         pinned memory, without a host sync."""
-        gray = torch.from_numpy(np.array(to_gray(np.asarray(image))))
+        gray = torch.from_numpy(np.array(gray_np))
         if self.device.type == "cuda":
             return gray.pin_memory().to(self.device, non_blocking=True)
         return gray.to(self.device)
 
     def init(self, image: np.ndarray) -> None:
         """EKF::init (EKF.cpp:170-237)."""
-        self.state = self.runtime.init_step(self.state, self._upload(image))
+        self.state = self.runtime.init_step(
+            self.state, self._upload(to_gray(np.asarray(image))))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -186,9 +206,12 @@ class SlamEngine:
                              new_slot)
         return rec, times
 
-    def _summary(self, rec: StepRecord) -> np.ndarray:
+    def _summary(self, rec: StepRecord, draw: bool = False
+                 ) -> tuple[np.ndarray, dict]:
         """The frame's packed summary, x_cam (13) | P_cam (169) | 7
-        counters, read back in one device-to-host copy."""
+        counters, then with ``draw`` the overlays' fields (DRAW_FIELDS),
+        read back in one device-to-host copy.  Returns the summary in
+        float64 and the fields in the record's dtype (booleans as bool)."""
         state = self.state
 
         def count(mask):
@@ -199,13 +222,28 @@ class SlamEngine:
             rec.n_active, rec.n_visible,
             count(state.active & state.is_xyz),
             count(state.active & ~state.is_xyz)]).to(rec.x_cam.dtype)
-        packed = torch.cat([rec.x_cam, rec.P_cam.reshape(-1), counters])
-        return packed.cpu().numpy().astype(np.float64)
+        parts = [rec.x_cam, rec.P_cam.reshape(-1), counters]
+        if draw:
+            parts += [getattr(rec, k).to(rec.x_cam.dtype).reshape(-1)
+                      for k in DRAW_FIELDS]
+        packed = torch.cat(parts)
+        host = packed.cpu().numpy()
+        fields = {}
+        if draw:
+            at = SUMMARY_LEN
+            for k in DRAW_FIELDS:
+                v = getattr(rec, k)
+                n = v.numel()
+                a = host[at:at + n].reshape(tuple(v.shape))
+                fields[k] = a.astype(bool) if v.dtype == torch.bool else a
+                at += n
+        return host[:SUMMARY_LEN].astype(np.float64), fields
 
     def step(self, image: np.ndarray) -> dict:
         """EKF::step (EKF.cpp:242-666); returns the per-frame record."""
         t0 = time.perf_counter()
-        gray = self._upload(image)
+        gray_np = to_gray(np.asarray(image))
+        gray = self._upload(gray_np)
         phase_times = None
         if self.phase_timing:
             rec, phase_times = self._step_timed(gray)
@@ -216,7 +254,8 @@ class SlamEngine:
                 and self.frame_index % self.keyframe_every == 0):
             self._take_keyframe(gray)
         # no separate sync: the summary's copy waits for the step
-        summary = self._summary(rec)
+        summary, drawn = self._summary(
+            rec, draw=self._sink is not None or self._debug_sink is not None)
         record = self._summary_to_dict(summary, time.perf_counter() - t0)
         if phase_times is not None:
             record["phase_times_us"] = phase_times
@@ -252,6 +291,21 @@ class SlamEngine:
                 f"  matches {record['total_matches']} inliers "
                 f"{record['li_inliers']}+{record['hi_inliers']} "
                 f"map {record['n_active']}\n")
+        if self._map3d is not None:
+            # self.records already ends with this frame's record
+            traj = np.asarray([r["position"] for r in self.records])
+            self._map3d.maybe_write(self.frame_index, self.state, traj)
+        if self._sink is not None:
+            from openekfmonoslam_tpu_torch.viz.draw import (
+                draw_prediction_overlay)
+            self._sink.write(draw_prediction_overlay(
+                gray_np, drawn["pred_uv"], drawn["pred_S"], drawn["visible"],
+                drawn["z"], drawn["matched"]))
+        if self._debug_sink is not None:
+            from openekfmonoslam_tpu_torch.viz.draw import draw_ransac_debug
+            self._debug_sink.write(draw_ransac_debug(
+                gray_np, drawn["z"], drawn["matched"], drawn["inliers"],
+                drawn["new_uv"], drawn["new_ok"]))
         return record
 
     def _take_keyframe(self, gray: torch.Tensor) -> None:
@@ -384,6 +438,12 @@ class SlamEngine:
         if self._log:
             self._log.close()
             self._log = None
+        if self._sink is not None:
+            self._sink.close()
+            self._sink = None
+        if self._debug_sink is not None:
+            self._debug_sink.close()
+            self._debug_sink = None
         self.write_output_yml()
 
 

@@ -91,7 +91,8 @@ _SIGNATURES = {
     "ekf_cholsolve": [_P] * 8 + [_I, _I, _P],
     "ekf_noop": [_P],
     # the same kernels over B streams stacked (the int after the sizes is
-    # B; ekf_update_batched's int64 is its scratch's floats a stream)
+    # B; the int64 of ekf_update_batched and ekf_sinv_batched is the scratch's
+    # floats a stream)
     "ekf_predict_batched": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
     "ekf_measure_batched": [_P] * 8 + [_I, _I, _I,
                                        ctypes.POINTER(CamParams), _P],
@@ -104,6 +105,7 @@ _SIGNATURES = {
                          _P],
     "ekf_brief_batched": [_P, _I, _I, _I, _P, _P],
     "ekf_brief_generic_batched": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
+    "ekf_sinv_batched": [_P] * 11 + [_I, _I, ctypes.c_longlong, _P],
 }
 
 

@@ -28,15 +28,24 @@ outside any Pallas kernel).  On the card that path does not read back to
 the host: ``cholesky_ex`` skips the error check that
 ``torch.linalg.cholesky`` syncs for.
 
+B streams' S stacked on a leading axis take the same memset and six
+launches (the stream is a grid index, one factor CTA a stream; each
+stream compacts its own mask and its bits are its single launch's), which
+the batched step (parallel/batch_runner.py) reaches under
+``torch.func.vmap`` through the wrapper's custom op (ops/batched.py): the
+update chain of the large map and of the parity mode.
+
 Bound of the kernels on the H100: bytes (S in, S^-1 out); see
 csrc/sinv.cu for the count and the design.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from openekfmonoslam_tpu_torch.ops import cuda_lib, spd_core
+from openekfmonoslam_tpu_torch.ops import batched, cuda_lib, spd_core
 
 N_ITERS = 12
 F32_POLISH = 2
@@ -105,15 +114,19 @@ def ns_inverse_steps(S: torch.Tensor, lam_floor: float = 1.0,
 
 
 def sinv_cuda(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(S^-1, info) from the CUDA kernels; S (M, M) float32 SPD.  info, a
-    (1,) int32 tensor, counts the non-positive pivots of the factorization
-    (0 for an SPD S); it is returned for checking and nothing reads it on
-    the path."""
+    """(S^-1, info) from the CUDA kernels; S (M, M) float32 SPD, or B
+    streams stacked, (B, M, M), in the same memset and six launches (each
+    stream's factor on its own CTA, its bits those of its single launch).
+    info counts the non-positive pivots of the factorization (0 for an SPD
+    S), (1,) int32, or (B,) for stacked streams; it is returned for
+    checking and nothing reads it on the path."""
     S = S.contiguous()
     cuda_lib.check_cuda_inputs("sinv", {"S": S})
-    M = S.shape[0]
-    if S.shape != (M, M) or M < 1:
+    M = S.shape[-1]
+    lead = tuple(S.shape[:-2])
+    if S.shape != lead + (M, M) or len(lead) > 1 or M < 1:
         raise ValueError(f"sinv: S must be square, got {tuple(S.shape)}")
+    B = lead[0] if lead else 1
     dev = S.device
     out = torch.empty_like(S)
     # L, the diagonal blocks' inverses, W = L^-1, X, R, then the solve's
@@ -122,28 +135,47 @@ def sinv_cuda(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
              M * M, M * M, M * M,
              -(-M // SLAB) * M * SLAB if M * SLAB * 4 > SOLVE_SMEM_MAX
              else 0]
-    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    # a stream's scratch block, rounded to 16 bytes
+    per_stream = -(-sum(sizes) // 4) * 4
+    scratch = torch.empty((B * per_stream,), dtype=torch.float32, device=dev)
     ptrs, base = [], scratch.data_ptr()
     for n in sizes:
         ptrs.append(base)
         base += 4 * n
-    ints = torch.empty((2 * M + 2,), dtype=torch.int32, device=dev)
+    # idx and pos, B x M each, then (Mu, pivots) a stream
+    ints = torch.empty((B * (2 * M + 2),), dtype=torch.int32, device=dev)
     cuda_lib.library().call(
-        "ekf_sinv", S.data_ptr(), out.data_ptr(), *ptrs, ints.data_ptr(),
-        ints.data_ptr() + 4 * M, ints.data_ptr() + 8 * M, M,
+        "ekf_sinv_batched", S.data_ptr(), out.data_ptr(), *ptrs,
+        ints.data_ptr(), ints.data_ptr() + 4 * B * M,
+        ints.data_ptr() + 8 * B * M, M, B, per_stream,
         cuda_lib.stream_of(S))
     LAUNCHES.hit()
-    return out, ints[2 * M + 1:]
+    return out, ints[2 * B * M:].view(B, 2)[:, 1]
+
+
+@functools.cache
+def _batched_op():
+    def sinv_op(S: torch.Tensor) -> torch.Tensor:
+        return sinv_cuda(S)[0]
+
+    def rule(info, in_dims, S):
+        S, = batched.stacked(info.batch_size, in_dims, S)
+        return sinv_cuda(S)[0], 0
+
+    return batched.custom_op("sinv", sinv_op, rule)
 
 
 def newton_schulz_inverse(S: torch.Tensor, lam_floor: float = 1.0
                           ) -> torch.Tensor:
-    """S^-1 by the S-inverse kernels on CUDA, by their plain version
+    """S^-1 by the S-inverse kernels on CUDA (one launch set for all
+    streams under ``torch.func.vmap``), by their plain version
     ``cholesky_inverse`` on the CPU.  ``lam_floor`` keeps the JAX
     signature; the factorization needs no bound on lambda_min and does not
     read it."""
     if S.device.type == "cpu":
         return cholesky_inverse(S)
+    if batched.any_batched(S):
+        return _batched_op()(S)
     return sinv_cuda(S)[0]
 
 

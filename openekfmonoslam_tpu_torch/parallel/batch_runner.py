@@ -4,10 +4,11 @@ Production serving runs one filter per camera stream.  Here B streams
 share each step: every field of the state gains a leading (B,) axis, and
 the step's phases (``SlamRuntime.phase_*``) run under ``torch.func.vmap``,
 so each PyTorch op is dispatched once for the B streams.  On the GPU every
-hand-written kernel of the path (predict, measure, the fused update,
-STAR, BRIEF and the add path's init (A) and (B)) is reached through its
-``torch.library`` custom op, whose vmap rule makes ONE launch with a
-stream index in its grid (ops/batched.py): the launches a batched frame
+hand-written kernel of the path (predict, measure, the fused update, the
+S-inverse, STAR, BRIEF and the add path's init (A) and (B)) is reached
+through its ``torch.library`` custom op, whose vmap rule makes ONE launch
+(set) with a stream index in its grid (ops/batched.py): the launches a
+batched frame
 makes do not grow with B, and each stream's bits are those of its own
 single-stream launch.  The streams never exchange data.
 
@@ -21,13 +22,19 @@ its own count (``detect.select_zone_balanced``'s ``limit``); a stream that
 did not trigger has its candidates masked off, so its state passes through
 bit for bit and its record's ``new_uv`` is zeros.
 
-Scope: the FAST and STAR detectors with BRIEF descriptors and the
-descriptor matcher, in correct-math mode; on the card the fused update
-must apply (float32, N <= 768, 2F <= 512).  Other profiles, the NCC
-matcher, the parity modes and the large map raise NotImplementedError
-(ROADMAP Queue 1 item 18b).  The JAX package's mesh arguments and its
-two-axis layout (``make_batched_step_2d``, ``batch_state_shardings_2d``)
-wait for the port's P sharding (item 21).
+Scope: every configuration the single-stream step runs, as the JAX
+package's batched step vmaps them all: every detector (FAST, STAR, ORB,
+SIFT, SURF, HARRIS, SHI_TOMASI) and descriptor (BRIEF, ORB, SURF-64,
+PATCH), the descriptor and the NCC matchers, the parity modes and the
+large map.  On the card the update takes the fused kernel where it
+applies, and otherwise (the large map, N = 1024; every update of the
+parity mode) the chain whose S^-1 is the S-inverse kernels' batched
+launch (ops/sinv.py), one launch set for B streams.  The front ends'
+PyTorch chains (ORB's pyramid, the DoG / DoH scale spaces, Harris, the
+SURF-64 descriptors, NCC's correlation) run under vmap as they are.  The
+JAX package's mesh arguments and its two-axis layout
+(``make_batched_step_2d``, ``batch_state_shardings_2d``) wait for the
+port's P sharding (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -41,9 +48,6 @@ from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
 from openekfmonoslam_tpu_torch.filter import mapman
 from openekfmonoslam_tpu_torch.filter.state import SlamState
-from openekfmonoslam_tpu_torch.ops import update_kernel
-
-BATCHED_DETECTORS = ("FAST", "STAR")
 
 
 def _live(name: str) -> torch.profiler.record_function:
@@ -52,35 +56,12 @@ def _live(name: str) -> torch.profiler.record_function:
     return torch.profiler.record_function(LIVE_PHASE_PREFIX + name)
 
 
-def check_batchable(runtime: SlamRuntime) -> None:
-    """Raise NotImplementedError for a configuration the batched step does
-    not run (ROADMAP Queue 1 item 18b)."""
-    cfg = runtime.config
-    N, F = cfg.padded_state_dim, cfg.max_features
-    why = None
-    if cfg.detector.kind.upper() not in BATCHED_DETECTORS:
-        why = f"the {cfg.detector.kind} detector"
-    elif cfg.descriptor.kind.upper() != "BRIEF":
-        why = f"the {cfg.descriptor.kind} descriptor"
-    elif cfg.matcher != "descriptor":
-        why = f"the {cfg.matcher} matcher"
-    elif runtime.quirks or cfg.ransac_parity_visit:
-        why = "the parity mode"
-    elif runtime.device.type == "cuda" and not (
-            runtime.dtype == torch.float32
-            and update_kernel.update_kernel_fits(N, 2 * F)):
-        why = (f"the update chain with the S-inverse ({cfg.dtype}, N = {N},"
-               f" 2F = {2 * F}: the fused update does not apply)")
-    if why is not None:
-        raise NotImplementedError(
-            f"batched step: {why} is not batched yet (ROADMAP Queue 1 item "
-            "18b)")
-
-
 def make_batch_states(runtime: SlamRuntime, batch: int,
                       seeds=None) -> SlamState:
-    """A SlamState whose every field gains a leading (B,) axis; ``seeds``
-    (B ints) sets each stream's ``rng`` (filter/state.py's int64 seed)."""
+    """A SlamState whose every field gains a leading (B,) axis, each with
+    its single-stream dtype (the descriptor slots int32 words for binary
+    descriptors, float32 for SURF-64 and PATCH); ``seeds`` (B ints) sets
+    each stream's ``rng`` (filter/state.py's int64 seed)."""
     base = runtime.make_initial_state()
     states = SlamState(*(t.expand((batch,) + tuple(t.shape)).contiguous()
                          for t in base))
@@ -97,15 +78,12 @@ def batched_init_recorded(runtime: SlamRuntime, states: SlamState, grays):
     """``init_step_recorded`` over the stream axis: (states, uv, ok, slot),
     the last three (B, C, ...) (each stream's bootstrap features, the
     entry of its injection log)."""
-    check_batchable(runtime)
     return vmap(runtime.init_step_recorded)(states, runtime._tensor(grays))
 
 
 def make_batched_init(runtime: SlamRuntime):
     """``init_step`` over the stream axis: (states, grays (B, H, W)) ->
     states."""
-    check_batchable(runtime)
-
     def batched_init(states: SlamState, grays) -> SlamState:
         return batched_init_recorded(runtime, states, grays)[0]
 
@@ -118,7 +96,6 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
     batch level; ``grays`` (B, H, W).  Returns (states, records), each
     record field with a leading (B,) axis.  Each phase is a ``step.<phase>``
     profiler range, as in ``SlamRuntime.step``."""
-    check_batchable(runtime)
     rt = runtime
     cfg = rt.config
     C, F = cfg.max_features, cfg.max_features
@@ -140,8 +117,11 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
         states, do_mm, needed = vmap(rt.mapman_maintain)(
             states, pred, m, res.inliers | rescued)
         thr = cfg.ekf.inverse_depth_linearity_index_threshold
+        # the parity mode scans in insertion order, as the single-stream
+        # step does
         states = vmap(lambda st, en: mapman.convert_one_to_xyz(
-            st, thr, enable=en))(states, do_mm)
+            st, thr, enable=en,
+            order_key=st.birth if rt.quirks else None))(states, do_mm)
 
         # the batch's one host read: which streams need features, and how
         # many each
@@ -177,9 +157,7 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
 
 def make_batched_step(runtime: SlamRuntime):
     """(states, grays (B, H, W)) -> (states, records): ``batched_step``
-    with the configuration checked once."""
-    check_batchable(runtime)
-
+    bound to ``runtime``."""
     def step(states: SlamState, grays) -> tuple[SlamState, StepRecord]:
         return batched_step(runtime, states, grays)
 

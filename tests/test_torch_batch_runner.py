@@ -245,19 +245,6 @@ def test_scan_matches_stepping():
     assert all(torch.equal(a, b) for a, b in zip(final, s))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(detector=tcfg.DetectorConfig(kind="ORB")),
-    dict(descriptor=tcfg.DescriptorConfig(kind="SURF")),
-    dict(descriptor=tcfg.DescriptorConfig(kind="PATCH"), matcher="ncc"),
-    dict(reference_quirks=True, ransac_parity_visit=True),
-])
-def test_unported_configurations_raise(kw):
-    rt = TRuntime(dataclasses.replace(fast_config(tcfg), **kw),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
-        br.make_batched_step(rt)
-
-
 def _stack_states(states):
     return SlamState(*(torch.stack(f) for f in zip(*states)))
 

@@ -4,7 +4,9 @@ shapes the main path does not reach: odd F and C (per-stream outputs off
 16-byte boundaries), predict's scalar fallback (N % 4 != 0), an update
 with one stream using no slot, an addition with no valid candidate in one
 stream and a duplicate slot in another, STAR by both routes and BRIEF by
-both variants on an odd frame size; and the wrappers under
+both variants on an odd frame size, the S-inverse at M = 1, 7, 192 and 336
+with one stream's S all identity rows (every row masked); and the wrappers
+under
 ``torch.func.vmap`` on the card, one launch for the batch through each
 kernel's custom op.  ``chip_smoke.py`` phase 2 checks the main path's
 shapes.
@@ -24,7 +26,7 @@ from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, init_kernel,
                                            measure_kernel, predict_kernel,
-                                           star_kernel, update_kernel)
+                                           sinv, star_kernel, update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 pytestmark = pytest.mark.cuda
@@ -134,6 +136,33 @@ def test_init_and_augment(dev, N, C):
     assert torch.equal(P_new[0], P[0])
     _same((P_new,), lambda b: (init_kernel.augment_cuda(
         P[b], chain[3][b], slots[b], ok[b]),))
+
+
+def _masked_s(rng, m, used_frac):
+    """An update's masked S: identity rows and columns for the unused
+    slots, an SPD block on the used ones."""
+    used = rng.random(m) < used_frac
+    h = rng.normal(size=(m, 30)) * 3.0
+    S = np.zeros((m, m))
+    S[np.ix_(used, used)] = (h @ h.T)[np.ix_(used, used)]
+    S[np.diag_indices(m)] += 1.0
+    return S
+
+
+@pytest.mark.parametrize("M", [1, 7, 192, 336])
+def test_sinv(dev, M):
+    rng = np.random.default_rng(M)
+    # stream 0 has every row masked (S = I); the others use more and more
+    S = _f32([_masked_s(rng, M, frac) for frac in (0.0, 0.5, 1.0)], dev)
+    X, info = sinv.sinv_cuda(S)
+    assert torch.equal(X[0], torch.eye(M, device=dev))
+    assert info.tolist() == [0] * B
+    _same((X,), lambda b: (sinv.sinv_cuda(S[b])[0],))
+    # under torch.func.vmap, through the custom op: one launch set
+    before = sinv.LAUNCHES.count
+    got = vmap(sinv.newton_schulz_inverse)(S)
+    assert sinv.LAUNCHES.count == before + 1
+    assert torch.equal(got, X)
 
 
 def _frames(dev, h=483, w=645):

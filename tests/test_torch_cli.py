@@ -162,16 +162,6 @@ def test_checkpoint_every_then_resume(files, interactive):
     assert strip(recs) == strip(interactive["records"][3:])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--render"], "item 19"), (["--render-debug"], "item 19"),
-    (["--viz3d", "2"], "item 19")])
-def test_options_not_ported_stop_with_their_roadmap_item(files, capsys,
-                                                         flags, item):
-    with pytest.raises(SystemExit):
-        cli.main([files["config"], files["frames"], *flags, *ARGS])
-    assert f"ROADMAP Queue 1 {item}" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("flags,what", [
     (["--keyframe-every", "2"], "graph"), (["--matcher", "ncc"], "ncc")])
 def test_keyframe_every_and_the_ncc_matcher_run(files, capsys, flags, what):

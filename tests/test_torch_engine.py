@@ -213,13 +213,6 @@ def test_config_file_sizes_the_large_map_in_both_packages(tmp_path):
             t.descriptor.n_bits) == ("STAR", 2, 256)
 
 
-@pytest.mark.parametrize("option", [
-    dict(render=True), dict(render_debug=True), dict(viz3d_every=2)])
-def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.SlamEngine(make_config(tcfg), device="cpu", **option)
-
-
 def test_keyframe_every_builds_the_pose_graph_on_the_engine_device():
     engine = teng.SlamEngine(make_config(tcfg), device="cpu",
                              keyframe_every=5, keyframe_capacity=8)

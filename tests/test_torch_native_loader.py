@@ -1,8 +1,17 @@
 """The port's native frame loader (``io/native_loader.py``) over
-``native/lib/libframeloader.so``: held against the port's PIL source and
+``native/frameloader.cpp``: held against the port's PIL source and
 against the JAX package's loader on the same PNG files, and picked by the
-port CLI's source builder.  Skips only where the shared library does not
-load."""
+port CLI's source builder.  Where ``native/lib/libframeloader.so`` (git-
+ignored, built by tools/build_native.sh) does not load, the fixture
+compiles ``native/frameloader.cpp`` with g++ into a temporary directory
+and points both packages' loaders at it for the test; nothing is written
+into ``native/lib/``.  Skips only where g++ or libpng's header is
+missing."""
+
+import os
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,13 +23,40 @@ from openekfmonoslam_tpu_torch.io import native_loader
 from openekfmonoslam_tpu_torch.io.sources import FileSequenceSource
 
 N_FRAMES = 8
+SOURCE = Path(__file__).resolve().parent.parent / "native" / "frameloader.cpp"
+
+
+@pytest.fixture(scope="session")
+def built_library(tmp_path_factory):
+    """A libframeloader.so compiled from native/frameloader.cpp into a
+    temporary directory (as tools/build_native.sh builds it, at -O2)."""
+    if shutil.which("g++") is None or not os.path.exists(
+            "/usr/include/png.h"):
+        pytest.skip("needs g++ and libpng's header to build the loader")
+    out = tmp_path_factory.mktemp("frameloader") / "libframeloader.so"
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                    str(SOURCE), "-o", str(out), "-lpng", "-lz",
+                    "-lpthread"], check=True, capture_output=True,
+                   timeout=300)
+    return str(out)
 
 
 @pytest.fixture
-def frames(tmp_path):
+def library(request, monkeypatch):
+    """The shared library both loaders use in the test: native/lib/'s
+    where it loads, else the one built from source."""
+    if native_loader.available() and jloader.available():
+        return
+    path = request.getfixturevalue("built_library")
+    for mod in (native_loader, jloader):
+        monkeypatch.setattr(mod, "_LIB_PATH", path)
+        monkeypatch.setattr(mod, "_lib", None)
+    assert native_loader.available() and jloader.available()
+
+
+@pytest.fixture
+def frames(tmp_path, library):
     """8 numbered PNGs, the even ones grey (mode L), the odd ones RGB."""
-    if not native_loader.available():
-        pytest.skip("native/lib/libframeloader.so does not load")
     rng = np.random.default_rng(0)
     for i in range(1, N_FRAMES + 1):
         if i % 2:

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --engine-features-only   # phases 1 and 9-11
     python3 chip_smoke.py --batch-only      # phases 1 and 12 alone
     python3 chip_smoke.py --viz-only        # phases 1 and 13 alone
+    python3 chip_smoke.py --shard-only      # phases 1 and 14 alone
     python3 chip_smoke.py --replay-seeds 1,2,7   # phase 4's float64
                                  # agreement at other scenes (phase 1 first)
 
@@ -38,10 +39,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
               (eval/replay.py run_uploaded) with every launch counter set
               to 0 just before and read just after, which gives frames/s;
               then two more replays: one counts host syncs per frame
-              under PyTorch's sync debug mode, one takes each phase's
-              host and device ms from torch.profiler's ranges, the
-              device launches a call of predict_measurements and of an
-              addition (filter/features._add_features_impl);
+              under PyTorch's sync debug mode, one of the first 40 frames
+              takes each phase's host and device ms from torch.profiler's
+              ranges, the device launches a call of predict_measurements
+              and of an addition (filter/features._add_features_impl);
   4. replay   the same log through the port on the CPU in float64 (the
               plain path), held against the card's float32 trajectory;
               then in float32, for the frames whose inlier mask flips
@@ -169,9 +170,28 @@ Phases, each of which passes or raises (the script then exits non-zero):
               the drawing fields' read-back and snapshot_from_state against
               the CPU's.  OpenCV or matplotlib missing on the machine is
               printed on its own line, and what needs it is not rendered.
+ 14. shard    the large map (phase 6's configuration and frames) with P
+              split over torch.distributed ranks (parallel/sharding.py),
+              each rank a spawned process on the one card: p = 1 over NCCL
+              (21 frames), p = 2 row strips and (p, q) = (2, 2) tiles over
+              gloo (41 frames), and (d, p) = (2, 2) over gloo, phase 12's
+              streams 0 and 1 through batch_runner's two-axis layout (21
+              frames).  Each run: launches a step (measure 2, the
+              S-inverse's set 2, STAR 1, BRIEF 1, init (A) on adding frames
+              only, no predict, fused update or (B)), the collectives a
+              step by kind, axis and site with their bytes (none of N x N
+              elements, under 4 N^2 x 4 bytes a step), each rank's P bytes,
+              the replicated state and records of every rank bit for bit
+              against its group's first rank on every step, host syncs a
+              step by site (at most 1 over NCCL), max |P - P^T| / max |P|
+              of the gathered P (<= 1e-6), each run within 1e-4 m of the
+              single-device run of the same frames in this call (masks on
+              95% of frames), p = 2's log replayed in float64 on the CPU
+              (1e-4 m), and frames/s beside the single device (the ranks
+              share one card: no scaling is measured).
 
 Phases 5, 6 and 8 run 100 steps each, which keeps the whole run well
-inside its time limit with phases 12 and 13.
+inside its time limit with phases 12 to 14.
 
 Phase 2 also launches each main-path kernel (predict, measure and its
 quirks variant, the update's three launches, init (A) and (B), STAR by
@@ -201,7 +221,8 @@ setting takes, phase 6 for the S-inverse, phase 7's engine for the
 measure kernel's quirks variant; the Cholesky solve has no path; the
 S-inverse's times and bound are on a kept frame's S of phase 6), with
 ``launches_batch`` from phase 12's main run, ``launches_batch_configs``
-from its runs of the other configurations, and ``batch8_ms`` from phase 2
+from its runs of the other configurations, ``launches_shard`` from phase
+14's runs (rank 0's), and ``batch8_ms`` from phase 2
 (null for the Cholesky solve, which has no path and no batched launch).  The last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -212,20 +233,27 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import math
+import multiprocessing
+import os
+import queue
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import threading
 import time
+import traceback
 import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from openekfmonoslam_tpu_torch.config import (DescriptorConfig,
@@ -247,7 +275,7 @@ from openekfmonoslam_tpu_torch.filter import measure as meas_mod
 from openekfmonoslam_tpu_torch.filter import predict as pred_mod
 from openekfmonoslam_tpu_torch.filter import ransac as ransac_mod
 from openekfmonoslam_tpu_torch.filter import update as upd_mod
-from openekfmonoslam_tpu_torch.filter.state import dim_active_mask
+from openekfmonoslam_tpu_torch.filter.state import SlamState, dim_active_mask
 from openekfmonoslam_tpu_torch.graph import pose_graph as graph_mod
 from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
@@ -255,7 +283,8 @@ from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            measure_kernel, predict_kernel,
                                            sinv, spd_core, star_kernel,
                                            update_kernel)
-from openekfmonoslam_tpu_torch.parallel import batch_runner
+from openekfmonoslam_tpu_torch.parallel import (batch_runner, multihost,
+                                                sharding)
 from openekfmonoslam_tpu_torch.serving import server as server_mod
 from openekfmonoslam_tpu_torch.vision import brief
 from openekfmonoslam_tpu_torch.vision import dog as dog_mod
@@ -335,6 +364,9 @@ def read_launches() -> dict:
     return {name: spec["counter"].count for name, spec in KERNELS.items()}
 
 T_FRAMES = 220          # frames of the replay path (>= 200)
+# its first frames under the profiler (which costs about half a second a
+# frame with the chain ranges)
+PATH_PROFILED = 40
 T_LIVE = 101            # frames of the live path: init_step + 100 steps
 LIVE_HW = (480, 640)    # the s3 frame size
 GRAPH_REPS = 200        # kernel launches per timed CUDA graph
@@ -1603,16 +1635,19 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           f"frames/s, {syncs} host syncs ({syncs / T_FRAMES:.3f} per "
           f"frame): {dict(sync_sites)}", flush=True)
 
-    # and once more under torch.profiler, for the time of each phase, with
-    # a range around each predict_measurements call and each addition for
-    # their device launches
+    # and its first PATH_PROFILED frames under torch.profiler, for the time
+    # of each phase, with a range around each predict_measurements call and
+    # each addition for their device launches
+    K = PATH_PROFILED
+    head = ulog._replace(**{f: getattr(ulog, f)[:K] for f in (
+        "z", "matched", "new_uv", "new_valid", "new_slot")})
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
             chain_ranges({**MEASURE_CHAIN, **ADD_CHAIN}):
-        replay.run_uploaded(runtime, ulog)
+        replay.run_uploaded(runtime, head)
         torch.cuda.synchronize()
     averages = prof.key_averages()
-    mc = chain_device(prof.events(), T_FRAMES, tuple(MEASURE_CHAIN))[
+    mc = chain_device(prof.events(), K, tuple(MEASURE_CHAIN))[
         "filter.predict_measurements"]
     measure_launches = mc["launches"] / mc["calls"]
     print(f"  predict_measurements: {measure_launches:.2f} device launches "
@@ -1621,9 +1656,9 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           flush=True)
     # the addition's PyTorch launches (the range does not see the two
     # ctypes launches of csrc/init.cu, which kernel_device_us reads)
-    ac = chain_device(prof.events(), T_FRAMES, tuple(ADD_CHAIN))[
+    ac = chain_device(prof.events(), K, tuple(ADD_CHAIN))[
         "filter.add_features"]
-    add_us = kernel_device_us(averages, T_FRAMES, ADD_KERNEL_NAMES)
+    add_us = kernel_device_us(averages, K, ADD_KERNEL_NAMES)
     add_call = dict(calls_per_frame=ac["calls"],
                     torch_launches=ac["launches"] / ac["calls"],
                     torch_device_us=ac["device_us"] / ac["calls"],
@@ -1637,11 +1672,11 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
           + ", ".join(f"{k} {v:.2f}" for k, v in
                       add_call["kernels_us"].items())
           + f" us; host {add_call['host_us']:.2f} us a call)", flush=True)
-    phase_ms = phase_times(averages, T_FRAMES)
-    dev_ms = device_ms(averages, T_FRAMES)
-    update_us = kernel_device_us(averages, T_FRAMES, UPDATE_KERNEL_NAMES)
-    print("  per-phase ms/frame under the profiler (host, device of "
-          "PyTorch's kernels): "
+    phase_ms = phase_times(averages, K)
+    dev_ms = device_ms(averages, K)
+    update_us = kernel_device_us(averages, K, UPDATE_KERNEL_NAMES)
+    print(f"  per-phase ms/frame under the profiler over {K} frames (host, "
+          "device of PyTorch's kernels): "
           + ", ".join(f"{k} {v['host_ms']:.4f} {v['device_ms']:.4f}"
                       for k, v in phase_ms.items()), flush=True)
     print_device(dev_ms, update_us)
@@ -3878,6 +3913,418 @@ def phase_viz(cfg: SlamConfig, failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+T_SHARD = 41                  # frames of the p = 2 and (2, 2) runs
+T_SHARD_SHORT = 21            # frames of the NCCL p = 1 and the d x p runs
+SHARD_WARM = 4                # frames of each rank's warm-up run
+SHARD_SYNC_STEPS = 5          # steps of each rank's sync debug run
+SHARD_SYM_TOL = 1e-6          # max |P - P^T| / max |P| after a run
+SHARD_JOIN_S = 600.0          # every run's ranks finish within this, or
+#                               every worker is killed and the phase fails
+SHARD_STREAMS = 2             # phase 12's streams 0 and 1, for d x p
+# (name, backend, mesh shape, mesh axes, frames); every rank on cuda:0
+SHARD_RUNS = (("p1_nccl", "nccl", (1,), ("p",), T_SHARD_SHORT),
+              ("p2", "gloo", (2,), ("p",), T_SHARD),
+              ("p2q2", "gloo", (2, 2), ("p", "q"), T_SHARD),
+              ("d2p2", "gloo", (2, 2), ("d", "p"), T_SHARD_SHORT))
+# each kernel's launches a sharded step (init (A) also on adding frames);
+# predict, the fused update and (B) take whole P: their tile forms run
+SHARD_PER_STEP = {"measure": 2, "sinv": 2, "star": 1, "brief": 1,
+                  "predict": 0, "update": 0, "init_augment": 0,
+                  "measure_quirks": 0, "star_direct": 0, "brief_generic": 0,
+                  "cholsolve": 0}
+
+
+def replicated_digest(state, record) -> str:
+    """sha256 of every replicated field of a state and of its record."""
+    h = hashlib.sha256()
+    for name, t in list(state._asdict().items()) + list(
+            record._asdict().items()):
+        if name != "P":
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_worker(rank: int, runs: list, frames: dict, out) -> None:
+    """One spawned process of phase 14: rank ``rank`` of each run of
+    ``runs`` that has that many ranks, one run after another (a run's
+    process group is started and destroyed within it).  Each result, or
+    the traceback of what failed (after which the process stops), goes to
+    ``out``."""
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for run in runs:
+        if rank >= math.prod(run["shape"]):
+            continue
+        try:
+            res = shard_rank_run(rank, run, frames[run["frames"]])
+        except BaseException:
+            out.put((run["name"], rank, traceback.format_exc()))
+            raise
+        out.put((run["name"], rank, res))
+
+
+def shard_rank_run(rank: int, run: dict, frames: np.ndarray) -> dict:
+    """One rank of one run: warm-up, the timed run with every counter at 0
+    just before, a sync debug run, and the gathered P's symmetry."""
+    t_start = time.perf_counter()
+    dp = run["axes"][0] == "d"
+    if dp:
+        os.environ["LOCAL_WORLD_SIZE"] = str(run["shape"][1])
+    world = math.prod(run["shape"])
+    dev = run["device"]
+    multihost.initialize(f"127.0.0.1:{run['port']}", world, rank,
+                         backend=run["backend"], device=dev)
+    try:
+        rt = SlamRuntime(run["config"], device=dev)
+        gpu = rt._tensor(frames)
+        T = frames.shape[-3]
+        if dp:
+            mesh = multihost.make_host_mesh(device=dev)
+            init = batch_runner.make_batched_init_2d(rt, mesh)
+            step = batch_runner.make_batched_step_2d(rt, mesh)
+            srt = step.runtime
+
+            def start():
+                states = batch_runner.make_batch_states(
+                    rt, SHARD_STREAMS, seeds=range(SHARD_STREAMS), mesh=mesh,
+                    p_axis="p")
+                return init(states, gpu[:, 0]), None
+
+            def frame(t):
+                return gpu[:, t]
+        else:
+            mesh = (sharding.make_mesh(dev, axis="p")
+                    if len(run["shape"]) == 1
+                    else sharding.make_mesh_2d(dev, shape=run["shape"],
+                                               axes=run["axes"]))
+            srt = sharding._sharded_runtime(rt, mesh, *run["axes"])
+            step = srt.step
+
+            def start():
+                st, uv0, ok0, slot0 = srt.init_step_recorded(
+                    srt.make_initial_state(), gpu[0])
+                return st, (uv0, ok0, slot0)
+
+            def frame(t):
+                return gpu[t]
+        comm = srt.tiling.comm
+        t_setup = time.perf_counter()
+
+        st, _ = start()                       # warm-up, off the clock
+        for t in range(1, SHARD_WARM):
+            st, _ = step(st, frame(t))
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter()
+
+        # the main path: every launch and collective counter at 0 just
+        # before, read just after; the collectives also a step apart
+        reset_launches()
+        comm.reset()
+        t0 = time.perf_counter()
+        st, boot = start()
+        init_comm = comm.summary()
+        comm.reset()
+        steps, recs, per_step = [], [], []
+        for t in range(1, T):
+            st, rec = step(st, frame(t))
+            per_step.append(comm.summary())
+            comm.reset()
+            steps.append(st)
+            recs.append(rec)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+        digests = [replicated_digest(s, r) for s, r in zip(steps, recs)]
+
+        # host syncs a step, by site, from a state already on the card
+        st2, _ = start()
+        torch.cuda.synchronize()
+
+        def sync_steps():
+            s = st2
+            for t in range(1, 1 + SHARD_SYNC_STEPS):
+                s, _ = step(s, frame(t))
+
+        sites, sync_s = count_syncs(sync_steps)
+        t_sync = time.perf_counter()
+
+        # the whole P once, for its symmetry (not a step's collective)
+        P_local = st.P
+        if dp:
+            P_full = sharding.gather_state(
+                SlamState(*(f[0] for f in st)), mesh, ("p",)).P
+        else:
+            P_full = sharding.gather_state(st, mesh, run["axes"]).P
+        asym = float((P_full - P_full.T).abs().max() / P_full.abs().max())
+        result = dict(
+            rank=rank, elapsed_s=elapsed, fps=T / elapsed, launches=launches,
+            init_comm=init_comm, per_step=per_step, digests=digests,
+            sync_sites=dict(sites), syncs=sum(sites.values()),
+            sync_s=sync_s, asym=asym, p_local_shape=list(P_local.shape),
+            p_local_bytes=P_local.numel() * P_local.element_size(),
+            coordinate=list(mesh.get_coordinate()),
+            hp_layout=srt.hp_layout, device=str(P_local.device),
+            seconds=dict(setup=t_setup - t_start, warm=t_warm - t_setup,
+                         main_and_sync=t_sync - t_warm,
+                         gather=time.perf_counter() - t_sync))
+        recs = scan_runner.stack_records(recs)
+        result["records"] = {k: v.cpu().numpy()
+                             for k, v in recs._asdict().items()}
+        if boot is not None:
+            result["boot"] = [a.cpu().numpy() for a in boot]
+        return result
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_runs(runs: list, frames: dict) -> tuple[dict, list]:
+    """Every run of ``runs`` on one set of spawned worker processes (as
+    many as the largest run has ranks); ({name: {rank: result}}, errors).
+    Every process is joined, and killed if it outlives SHARD_JOIN_S."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    world = max(math.prod(r["shape"]) for r in runs)
+    want = sum(math.prod(r["shape"]) for r in runs)
+    procs = [ctx.Process(target=shard_worker, args=(r, runs, frames, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors, n = {r["name"]: {} for r in runs}, [], 0
+    deadline = time.monotonic() + SHARD_JOIN_S
+    try:
+        while n < want and not errors and time.monotonic() < deadline:
+            try:
+                name, rank, res = out.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    time.sleep(2.0)       # the failing rank's traceback
+                    if out.empty():
+                        errors.append("a worker exited with "
+                                      + str([p.exitcode for p in procs]))
+                continue
+            if isinstance(res, str):
+                errors.append(f"{name}, rank {rank}:\n{res}")
+            else:
+                got[name][rank] = res
+                n += 1
+        if n < want and not errors:
+            errors.append(f"{want - n} rank results missing after "
+                          f"{SHARD_JOIN_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=5.0 if errors else
+                   max(deadline - time.monotonic(), 5.0))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got, errors
+
+
+def per_step_comm(per_step: list) -> dict:
+    """A run's collectives a step: calls and bytes by kind/axis/site (the
+    mean), the most bytes and elements of any step and call."""
+    calls, nbytes = collections.Counter(), collections.Counter()
+    for s in per_step:
+        calls.update(s["calls"])
+        nbytes.update(s["bytes"])
+    n = max(len(per_step), 1)
+    return dict(calls={k: v / n for k, v in calls.items()},
+                bytes={k: v / n for k, v in nbytes.items()},
+                max_step_bytes=max(s["total_bytes"] for s in per_step),
+                mean_step_bytes=sum(s["total_bytes"] for s in per_step) / n,
+                max_call_elements=max(s["largest_elements"]
+                                      for s in per_step))
+
+
+def against_run(a, b) -> dict:
+    """Records ``a`` against ``b`` (dicts of numpy fields, frames first):
+    camera-position gap a frame, shares of frames with identical inlier
+    and visibility masks."""
+    gap = np.linalg.norm(a["x_cam"][:, 0:3].astype(np.float64)
+                         - b["x_cam"][:, 0:3], axis=1)
+    same = [float(np.mean([np.array_equal(x, y)
+                           for x, y in zip(a[k], b[k])]))
+            for k in ("inliers", "visible")]
+    return dict(gap_max=float(gap.max()), worst_frame=int(gap.argmax()) + 1,
+                inliers_same=same[0], visible_same=same[1])
+
+
+def single_run(rt: SlamRuntime, frames: np.ndarray) -> tuple[dict, float]:
+    """The single-device step over ``frames`` (init + steps), after a
+    warm-up: (records as numpy fields, frames/s)."""
+    scan_runner.run_sequence_on_device(rt, frames[:SHARD_WARM])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, recs = scan_runner.run_sequence_on_device(rt, frames)
+    torch.cuda.synchronize()
+    return recs._asdict(), len(frames) / (time.perf_counter() - t0)
+
+
+def phase_shard(failures: list) -> dict:
+    """The large map with P split over torch.distributed ranks that share
+    the one card (parallel/sharding.py): p = 1 over NCCL, p = 2 and
+    (p, q) = (2, 2) over gloo, and streams x row strips (d, p) = (2, 2)
+    through parallel/batch_runner.py's two-axis layout, each against the
+    single-device run of the same frames."""
+    print("== phase 14: sharded covariance", flush=True)
+    cfg = large_map_config()
+    N, F = cfg.padded_state_dim, cfg.max_features
+    rt = SlamRuntime(cfg)
+    frames = live_frames(T_LIVE)[:T_SHARD]
+    streams = batch_frames(SHARD_STREAMS, T_BATCH)[:, :T_SHARD_SHORT]
+    print(f"  the large map: F = {F}, N = {N}; phase 6's frames, and "
+          f"phase 12's streams 0 and 1 for d x p; ranks on "
+          f"{torch.cuda.get_device_name(0)}, spawned, sharing cuda:0; "
+          f"dense H P from {13 + 6 * F} >= 1024 dims: "
+          f"{cfg.state_dim >= 1024}", flush=True)
+    single, single_fps = single_run(rt, frames)
+    singles = [single_run(rt, streams[b]) for b in range(SHARD_STREAMS)]
+    print(f"  single device: {single_fps:.2f} frames/s over {T_SHARD} "
+          "frames; streams 0, 1: " + ", ".join(
+              f"{s[1]:.2f}" for s in singles) + f" over {T_SHARD_SHORT}",
+          flush=True)
+    out = {"single_fps": single_fps,
+           "single_stream_fps": [s[1] for s in singles], "runs": {}}
+    full_p = N * N
+    runs = [dict(name=name, backend=backend, shape=shape, axes=axes,
+                 frames=f"{'streams' if axes[0] == 'd' else 'live'}{T}",
+                 config=cfg, device="cuda:0", port=free_port())
+            for name, backend, shape, axes, T in SHARD_RUNS]
+    t0 = time.perf_counter()
+    results, errors = spawn_runs(runs, {
+        f"live{T_SHARD}": frames, f"live{T_SHARD_SHORT}":
+        frames[:T_SHARD_SHORT], f"streams{T_SHARD_SHORT}": streams})
+    wall = time.perf_counter() - t0
+    workers = max(math.prod(r["shape"]) for r in runs)
+    check(failures, not errors,
+          f"every run's ranks ({', '.join(r['name'] for r in runs)}) ran "
+          f"to the end in {wall:.1f} s on {workers} worker processes"
+          + ("" if not errors else "\n" + "\n".join(errors)[-6000:]))
+    out["wall_s"] = wall
+    if errors:
+        return out
+    for name, backend, shape, axes, T in SHARD_RUNS:
+        dp = axes[0] == "d"
+        got = results[name]
+        r0 = got[0]
+        S = T - 1
+        print(f"  {name}: seconds by rank (setup, warm-up, main and sync "
+              f"runs, gather): " + "; ".join(
+                  f"{r} " + ", ".join(f"{v:.1f}" for v in
+                                      got[r]["seconds"].values())
+                  for r in sorted(got)), flush=True)
+        comm = per_step_comm(r0["per_step"])
+        print(f"  {name} ({backend}, mesh {dict(zip(axes, shape))}, "
+              f"{r0['hp_layout']} H P): {r0['fps']:.2f} frames/s over {T} "
+              f"frames (single device "
+              f"{single_fps if not dp else singles[0][1]:.2f}); P a rank "
+              f"{r0['p_local_shape']} = {r0['p_local_bytes']} B; "
+              f"collectives a step: {comm['calls']}; bytes a step "
+              f"{comm['bytes']}; mean {comm['mean_step_bytes']:.0f}, max "
+              f"{comm['max_step_bytes']} B; largest call "
+              f"{comm['max_call_elements']} elements; launches "
+              f"{r0['launches']}", flush=True)
+        # launches a step: the replicated kernels only
+        want = {k: v * S + (1 if k in ("star", "brief") else 0)
+                for k, v in SHARD_PER_STEP.items()}
+        got_l = r0["launches"]
+        adds = int(r0["records"]["new_ok"].reshape(S, -1).any(axis=1).sum())
+        check(failures, all(got_l[k] == v for k, v in want.items())
+              and 1 <= got_l["init"] <= 1 + adds,
+              f"{name}: launches {got_l} (a step: {SHARD_PER_STEP}, init "
+              f"(A) on the init and {adds} adding frames)")
+        # the ranks of a stream's group launch alike (d x p: a group a
+        # stream, each adding on its own frames)
+        groups = ([[0, 1], [2, 3]] if dp else [list(got)])
+        check(failures, all(got[r]["launches"] == got[g[0]]["launches"]
+                            for g in groups for r in g),
+              f"{name}: every rank launched as its group's first rank")
+        check(failures, comm["max_call_elements"] < full_p
+              and comm["max_step_bytes"] < 4 * full_p * 4,
+              f"{name}: no collective of N x N = {full_p} elements or more "
+              f"(largest {comm['max_call_elements']}), a step's bytes "
+              f"{comm['max_step_bytes']} < 4 N^2 x 4 = {4 * full_p * 4}")
+        # replicated state bit for bit against the group's first rank
+        same = all(got[r]["digests"] == got[g[0]]["digests"]
+                   for g in groups for r in g)
+        check(failures, same, f"{name}: the replicated state and records "
+              f"of every rank equal its group's first rank's, bit for bit, "
+              f"on every one of {S} steps")
+        syncs = {r: got[r]["syncs"] / SHARD_SYNC_STEPS for r in got}
+        print(f"  {name}: host syncs a step by rank {syncs}; rank 0's "
+              f"sites {r0['sync_sites']}; max |P - P^T| / max |P| "
+              + ", ".join(f"{got[r]['asym']:.3e}" for r in got), flush=True)
+        if backend == "nccl":
+            check(failures, syncs[0] <= 1.0,
+                  f"{name}: at most 1 host sync a step ({syncs[0]:.3f})")
+        check(failures, all(got[r]["asym"] <= SHARD_SYM_TOL for r in got),
+              f"{name}: max |P - P^T| / max |P| <= {SHARD_SYM_TOL} after "
+              f"{T} frames")
+        # against the single-device run of the same frames
+        if dp:
+            cmp = []
+            for g in groups:
+                b = got[g[0]]["coordinate"][0]
+                recs = {k: v[:, 0] for k, v in got[g[0]]["records"].items()}
+                cmp.append(against_run(recs, {k: v[:S] for k, v in
+                                              singles[b][0].items()}))
+        else:
+            cmp = [against_run(r0["records"],
+                               {k: v[:S] for k, v in single.items()})]
+        print(f"  {name} against the single device: " + "; ".join(
+            f"gap max {c['gap_max']:.3e} m (frame {c['worst_frame']}), "
+            f"masks {c['inliers_same']:.3f}, {c['visible_same']:.3f}"
+            for c in cmp), flush=True)
+        check(failures, all(c["gap_max"] <= LIVE_REPLAY_TOL
+                            and c["inliers_same"] >= LIVE_MASKS_SAME
+                            and c["visible_same"] >= LIVE_MASKS_SAME
+                            for c in cmp),
+              f"{name}: within {LIVE_REPLAY_TOL} m of the single device, "
+              f"masks identical on >= {LIVE_MASKS_SAME} of frames")
+        res = dict(backend=backend, shape=list(shape), axes=list(axes),
+                   frames=T, seconds={r: got[r]["seconds"] for r in got},
+                   fps=r0["fps"],
+                   fps_by_rank={r: got[r]["fps"] for r in got},
+                   launches=got_l, comm=comm, init_comm=r0["init_comm"],
+                   p_local_shape=r0["p_local_shape"],
+                   p_local_bytes=r0["p_local_bytes"],
+                   syncs_per_step=syncs, sync_sites=r0["sync_sites"],
+                   asym={r: got[r]["asym"] for r in got},
+                   against_single=cmp, hp_layout=r0["hp_layout"])
+        if name == "p2":
+            # its log (the front end's measurements) replayed in float64
+            uv0, ok0, slot0 = r0["boot"]
+            recs = step_mod.StepRecord(**{k: v[:, None] for k, v in
+                                          r0["records"].items()})
+            log = stream_log(uv0[None], ok0[None], slot0[None], recs, 0)
+            rt64 = SlamRuntime(dataclasses.replace(cfg, dtype="float64"),
+                               device="cpu")
+            t0 = time.perf_counter()
+            _, recs64 = replay.replay_records(rt64, log)
+            cpu_s = time.perf_counter() - t0
+            agree = against_float64(r0["records"]["x_cam"],
+                                    r0["records"]["inliers"],
+                                    r0["records"]["visible"], recs64)
+            print(f"  {name}: float64 CPU replay of its log {cpu_s:.1f} s: "
+                  f"deviation max {agree['dev_max']:.3e} (frame "
+                  f"{agree['worst_frame']}); masks identical on "
+                  f"{agree['inliers_same']:.3f}, {agree['visible_same']:.3f}"
+                  " of frames", flush=True)
+            check(failures, agree["dev_max"] <= LIVE_REPLAY_TOL,
+                  f"{name}: float64 replay within {LIVE_REPLAY_TOL} m")
+            res["replay"] = dict(cpu_s=cpu_s, **agree)
+        out["runs"][name] = res
+    return out
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3937,6 +4384,16 @@ def main(argv: list) -> int:
         (OUT / "viz.json").write_text(json.dumps(viz, indent=1))
         print(f"viz only: {time.perf_counter() - T_START:.1f} s", flush=True)
         return 0
+    if "--shard-only" in argv:
+        # phases 1 and 14 alone: P split over ranks; no result line
+        failures = []
+        shard = phase_shard(failures)
+        end_phase("shard", failures)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "shard.json").write_text(json.dumps(shard, indent=1))
+        print(f"shard only: {time.perf_counter() - T_START:.1f} s",
+              flush=True)
+        return 0
     if "--engine-features-only" in argv:
         # phases 1 and 9-11 alone: NCC, loop closure, serve; no result line
         features = phase_engine_features(live_cfg)
@@ -3985,6 +4442,9 @@ def main(argv: list) -> int:
     failures = []
     viz = phase_viz(live_cfg, failures)
     end_phase("viz", failures)
+    failures = []
+    shard = phase_shard(failures)
+    end_phase("shard", failures)
 
     T = T_FRAMES
     # each kernel's launches come from the path that runs it: the s3 live
@@ -4030,6 +4490,9 @@ def main(argv: list) -> int:
             # phase 12's runs of the other configurations at B = 4
             "launches_batch_configs": {k: v["launches"][name]
                                        for k, v in batch["configs"].items()},
+            # phase 14: the large map with P split over ranks (rank 0's)
+            "launches_shard": {k: v["launches"][name]
+                               for k, v in shard["runs"].items()},
             "batch8_ms": row["batch8_ms"]})
     extra = ("sinv_spd336", "sinv_masked336", "update_fused_n1024",
              "update_chain_n1024",
@@ -4050,6 +4513,7 @@ def main(argv: list) -> int:
                   cholsolve_checks=rows["cholsolve"]["checks"],
                   parity=parity, profiles=profiles,
                   engine_features=features, batch=batch, viz=viz,
+                  shard=shard,
                   seconds=time.perf_counter() - T_START)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -4087,6 +4551,10 @@ def main(argv: list) -> int:
         + f"; viz: {viz['fps_rendered']:.2f} frames/s rendered, "
         f"{viz['syncs_per_rendered_frame']:.3f} syncs a rendered frame",
         flush=True)
+    print(f"shard (the large map, ranks sharing the card): " + "; ".join(
+        f"{k} {v['fps']:.2f} frames/s, {v['comm']['mean_step_bytes']:.0f} B"
+        " of collectives a step" for k, v in shard["runs"].items())
+        + f" (single device {shard['single_fps']:.2f})", flush=True)
     print("profiles: " + "; ".join(
         f"{k} {v['fps']:.2f} frames/s over {v['frames']} frames, BRIEF "
         f"{v['launches']['brief'] / v['frames']:.2f} a frame"

@@ -183,20 +183,53 @@ class SlamRuntime:
         desc = self.frontend.describe(aux, kps.yx[picked.kp_index])
         uv = picked.uv.to(self.dtype)
         slots, ok = feat_mod.assign_slots(state.active, picked.valid)
-        state = feat_mod.add_features(state, self.camera, cfg, uv, desc,
-                                      picked.valid)
+        state = self.add_features(state, uv, desc, picked.valid)
         return state, uv, ok, slots
+
+    # -- the pieces that touch P; parallel/sharding.py's ShardedRuntime
+    # -- overrides each with its form on a tile of P --
+
+    def predict_filter(self, state: SlamState) -> SlamState:
+        """x[0:13] and P advanced by the motion model."""
+        return pred_mod.predict(state, self.config)
+
+    def predict_measurements(self, state: SlamState) -> meas_mod.Prediction:
+        """h, H, H P and H P H^T of every slot."""
+        return meas_mod.predict_measurements(state, self.camera,
+                                             quirks=self.quirks,
+                                             hp_layout=self.hp_layout)
+
+    def update_filter(self, state: SlamState, pred, z, use) -> SlamState:
+        """The joint update over the ``use`` slots."""
+        return upd_mod.update(state, pred, z, use,
+                              self.config.camera.pixel_error_x,
+                              deadband=self.quirks)
+
+    def remove_features(self, state: SlamState, remove) -> SlamState:
+        return mapman.remove_features(state, remove)
+
+    def convert_feature(self, state: SlamState, enable) -> SlamState:
+        """At most one inverse-depth slot converted to XYZ, where
+        ``enable``; the parity mode scans in insertion order."""
+        return mapman.convert_one_to_xyz(
+            state, self.config.ekf.inverse_depth_linearity_index_threshold,
+            enable=enable, order_key=state.birth if self.quirks else None)
+
+    def add_features(self, state: SlamState, uv, desc, valid) -> SlamState:
+        return feat_mod.add_features(state, self.camera, self.config, uv,
+                                     desc, valid)
+
+    def camera_covariance(self, state: SlamState) -> torch.Tensor:
+        """P[:13, :13], the record's camera block."""
+        return state.P[:13, :13]
 
     # -- the reference phases, each a separate method (EKF.cpp:255-618) --
 
     def phase_predict(self, state: SlamState):
         """[1] predict + measurement prediction (EKF.cpp:273-292)."""
         state = state._replace(frame=state.frame + 1)
-        state = pred_mod.predict(state, self.config)
-        pred = meas_mod.predict_measurements(state, self.camera,
-                                             quirks=self.quirks,
-                                             hp_layout=self.hp_layout)
-        return state, pred
+        state = self.predict_filter(state)
+        return state, self.predict_measurements(state)
 
     def phase_match(self, state: SlamState, pred, gray: torch.Tensor):
         """[2] guided matching (EKF.cpp:330-345): front-end precompute,
@@ -257,24 +290,18 @@ class SlamRuntime:
 
     def phase_update_li(self, state: SlamState, pred, m, inliers):
         """[4] low-innovation joint update (EKF.cpp:423-437)."""
-        return upd_mod.update(state, pred, m.z, inliers,
-                              self.config.camera.pixel_error_x,
-                              deadband=self.quirks)
+        return self.update_filter(state, pred, m.z, inliers)
 
     def phase_rescue(self, state: SlamState, m, outliers):
         """[5] re-predict + chi2 outlier rescue (EKF.cpp:443-517)."""
-        pred2 = meas_mod.predict_measurements(state, self.camera,
-                                              quirks=self.quirks,
-                                              hp_layout=self.hp_layout)
+        pred2 = self.predict_measurements(state)
         rescued = ransac_mod.rescue_outliers(
             pred2, m.z, outliers, self.config.ekf.ransac_chi2_threshold)
         return pred2, rescued
 
     def phase_update_hi(self, state: SlamState, pred2, m, rescued):
         """[6] high-innovation joint update (EKF.cpp:522-540)."""
-        return upd_mod.update(state, pred2, m.z, rescued,
-                              self.config.camera.pixel_error_x,
-                              deadband=self.quirks)
+        return self.update_filter(state, pred2, m.z, rescued)
 
     def mapman_maintain(self, state: SlamState, pred, m, inliers_all):
         """Counters plus the bad-ratio and unseen-pressure culls
@@ -288,12 +315,12 @@ class SlamRuntime:
         needed = ekf.min_matches_per_image - torch.sum(inliers_all,
                                                        dtype=torch.int32)
         bad = mapman.bad_feature_mask(state, ekf.good_feature_matching_percent)
-        state = mapman.remove_features(state, bad & do_mm)
+        state = self.remove_features(state, bad & do_mm)
         pressure = mapman.map_pressure(
             state, needed, ekf.always_remove_unseen_map_features,
             ekf.max_map_features_count, ekf.max_map_size)
         unseen = state.active & ~pred.visible
-        state = mapman.remove_features(state, unseen & pressure & do_mm)
+        state = self.remove_features(state, unseen & pressure & do_mm)
         return state, do_mm, needed
 
     def detect_candidates(self, state: SlamState, pred, aux, in_ellipse,
@@ -329,9 +356,7 @@ class SlamRuntime:
         cfg = self.config
         state, do_mm, needed = self.mapman_maintain(state, pred, m,
                                                     inliers_all)
-        state = mapman.convert_one_to_xyz(
-            state, cfg.ekf.inverse_depth_linearity_index_threshold,
-            enable=do_mm, order_key=state.birth if self.quirks else None)
+        state = self.convert_feature(state, do_mm)
 
         C, F = cfg.max_features, state.n_features
         dev = self.device
@@ -345,8 +370,7 @@ class SlamRuntime:
             state, pred, aux, in_ellipse, min(n_needed, C))
         cand_uv = cand_uv.to(self.dtype)
         new_slot, new_ok = feat_mod.assign_slots(state.active, cand_valid)
-        state = feat_mod.add_features(state, self.camera, cfg, cand_uv,
-                                      cand_desc, cand_valid)
+        state = self.add_features(state, cand_uv, cand_desc, cand_valid)
         return state, cand_uv, new_ok, new_slot
 
     def step(self, state: SlamState, gray) -> tuple[SlamState, StepRecord]:
@@ -379,7 +403,7 @@ class SlamRuntime:
 
         return StepRecord(
             x_cam=state.x[:13],
-            P_cam=state.P[:13, :13],
+            P_cam=self.camera_covariance(state),
             total_matches=count(m.matched),
             li_inliers=count(res.inliers),
             hi_inliers=count(rescued),

@@ -64,15 +64,18 @@ def measure_one(camera: Camera, cam7: torch.Tensor, feat: torch.Tensor,
 
 def predict_measurements(state: SlamState, camera: Camera,
                          quirks: bool = False,
-                         hp_layout: str = "blocks") -> Prediction:
+                         hp_layout: str = "blocks",
+                         products=None) -> Prediction:
     """h + H + S for every slot (predictCameraMeasurements,
     MeasurementPrediction.cpp:705-719).  ``quirks`` selects the
-    reference's bug-compatible H chain (the parity mode)."""
+    reference's bug-compatible H chain (the parity mode).  ``products``
+    (P, Hc, Hf, layout) -> (H P, H P H^T) defaults to ``hp_products``; the
+    sharded step passes its form on a tile of P."""
     dtype = state.P.dtype
     uv, Hc, Hf, visible = measure_kernel.measure(
         camera, state.x[:7], state.features, state.is_xyz, state.active,
         quirks=quirks)
-    HP, Sfull = hp_products(state.P, Hc, Hf, layout=hp_layout)
+    HP, Sfull = (products or hp_products)(state.P, Hc, Hf, layout=hp_layout)
     S = diag_blocks_2x2(Sfull) + torch.eye(2, dtype=dtype,
                                            device=Sfull.device)[None]
     return Prediction(uv=uv, visible=visible, Hc=Hc, Hf=Hf, S=S, HP=HP,
@@ -98,10 +101,17 @@ def hp_products(P: torch.Tensor, Hc: torch.Tensor, Hf: torch.Tensor,
     Pf = P[CAM_DIM:end, :].reshape(F, FEAT_DIM, N)
     HP = (torch.einsum("fic,cn->fin", Hc[:, :, :CAM_DIM], Pc)
           + torch.einsum("fid,fdn->fin", Hf, Pf)).reshape(2 * F, N)
+    return HP, blocks_hpht(HP, Hc, Hf)
+
+
+def blocks_hpht(HP: torch.Tensor, Hc: torch.Tensor, Hf: torch.Tensor
+                ) -> torch.Tensor:
+    """H P H^T (2F, 2F) from H P (2F, N) and the block-sparse H."""
+    F = Hc.shape[0]
+    end = CAM_DIM + F * FEAT_DIM
     S = HP[:, :CAM_DIM] @ Hc[:, :, :CAM_DIM].reshape(2 * F, CAM_DIM).T
     HPf = HP[:, CAM_DIM:end].reshape(2 * F, F, FEAT_DIM)
-    S = S + torch.einsum("ajd,jid->aji", HPf, Hf).reshape(2 * F, 2 * F)
-    return HP, S
+    return S + torch.einsum("ajd,jid->aji", HPf, Hf).reshape(2 * F, 2 * F)
 
 
 def diag_blocks_2x2(Sfull: torch.Tensor) -> torch.Tensor:

@@ -90,10 +90,13 @@ def motion_jacobian(cam13: torch.Tensor, dt: float) -> torch.Tensor:
         torch.cat([zeros(3, 10), eye3], dim=1)])
 
 
-def predict(state: SlamState, config: SlamConfig, dt: float = 1.0
-            ) -> SlamState:
-    """One predict step: the state with x[0:13] and P advanced."""
+def predict(state: SlamState, config: SlamConfig, dt: float = 1.0,
+            kernel=None) -> SlamState:
+    """One predict step: the state with x[0:13] and P advanced.
+    ``kernel`` (P, x, dt, lin, ang) -> (x', P') defaults to
+    ``predict_kernel.predict``; the sharded step passes its form on a
+    tile of P."""
     lin = (config.ekf.linear_accel_sd * dt) ** 2
     ang = (config.ekf.angular_accel_sd * dt) ** 2
-    x, P = predict_kernel.predict(state.P, state.x, dt, lin, ang)
+    x, P = (kernel or predict_kernel.predict)(state.P, state.x, dt, lin, ang)
     return state._replace(x=x, P=P)

@@ -1,10 +1,11 @@
 """Row/column placement on the covariance P (port of filter/shardable.py).
 
 In the JAX package these helpers express slice writes as predicate
-selects so that a row-sharded P is never gathered.  The port keeps one
-device and plain indexing: a slice write into a copy of P, or, for an
-offset computed on the device, ``index_copy`` (which ``torch.func.vmap``
-batches where an index write into a copy does not).  ``start`` may be a
+selects so that a row-sharded P is never gathered.  The port uses plain
+indexing: a slice write into a copy of P, or, for an offset computed on
+the device, ``index_copy`` (which ``torch.func.vmap`` batches where an
+index write into a copy does not).  Its sharded step
+(parallel/sharding.py) applies them to a rank's tile of P.  ``start`` may be a
 Python int or a 0-dim integer tensor (a slot offset computed on the
 device), which is indexed without a host sync.
 Every helper returns a new tensor; P itself is never written.

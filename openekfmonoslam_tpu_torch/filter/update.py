@@ -53,7 +53,20 @@ def kalman_xp(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
               use: torch.Tensor, pixel_error: float,
               update_covariance: bool = True, inverse=None,
               deadband: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x, P) after the Kalman step, from the shared H P / H P H^T.
+    """(x, P) after the Kalman step, from the shared H P / H P H^T
+    (``kalman_gain``, then P - K^T^T (H P) with the masked H P)."""
+    x, KT, HP = kalman_gain(x, HP, Sfull, uv, z, use, pixel_error, inverse,
+                            deadband)
+    if update_covariance:
+        P = P - KT.T @ HP                              # (I - K H) P
+    return x, P
+
+
+def kalman_gain(x: torch.Tensor, HP: torch.Tensor, Sfull: torch.Tensor,
+                uv: torch.Tensor, z: torch.Tensor, use: torch.Tensor,
+                pixel_error: float, inverse=None, deadband: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x', K^T = S^-1 (H P) (2F, N), the use-masked H P (2F, N)).
 
     Masking rows of H commutes with the products, so the masked versions
     are row/column-masked views; S^-1 is formed explicitly (the reference
@@ -61,7 +74,7 @@ def kalman_xp(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     (S -> S^-1) defaults to ``sinv.spd_inverse`` with the floor
     lambda_min(S) >= min(pixelError, 1) that R guarantees.  ``deadband``
     applies ``deadbanded`` to the residual and to the increment."""
-    dtype = P.dtype
+    dtype = HP.dtype
     m = use[:, None].to(dtype)
     res = ((z - uv) * m).reshape(-1)
     if deadband:
@@ -82,10 +95,7 @@ def kalman_xp(P: torch.Tensor, x: torch.Tensor, HP: torch.Tensor,
     dx = KT.T @ res
     if deadband:
         dx = deadbanded(dx)
-    x = x + dx
-    if update_covariance:
-        P = P - KT.T @ HP                              # (I - K H) P
-    return x, P
+    return x + dx, KT, HP
 
 
 def finalize_xp(P: torch.Tensor, x: torch.Tensor, applied: torch.Tensor

@@ -151,13 +151,25 @@ def augment_plain(P: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
     """P grown by the candidates' rows and columns from the chain's J1 and
     J2 (the JAX package's einsums, then its index-map placement): the
     plain version of (B) with the products of (A)."""
-    dtype, dev = P.dtype, P.device
-    C = J1.shape[0]
-    N = P.shape[0]
     # each new feature's J1 only reads the camera pose strip P[:7, :],
-    # which no addition modifies; two new features c, d cross-correlate
-    # by J1_c P77 J1_d^T
-    p7 = P[:7, :]
+    # which no addition modifies
+    A_ext, idx_map, wrote = augment_rows(P[:7, :], J1, J2, slots, ok, r_add)
+    G = torch.index_select(A_ext, 0, idx_map)                # (N, N)
+    Pn = torch.where(wrote[:, None], G, P)
+    return torch.where(wrote[None, :], G.T, Pn)
+
+
+def augment_rows(p7: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
+                 slots: torch.Tensor, ok: torch.Tensor, r_add: tuple):
+    """(A_ext (6C + 1, N), idx_map (N,), wrote (N,)) from the pose strip
+    ``p7`` = P[:7, :]: the candidates' new rows of P (a zero row last),
+    the row of A_ext that writes each state dim (the zero row for none),
+    and whether one does.  Row n of P_new is row idx_map[n] of A_ext
+    where wrote[n] (its column likewise), else P's."""
+    dtype, dev = p7.dtype, p7.device
+    C = J1.shape[0]
+    N = p7.shape[1]
+    # two new features c, d cross-correlate by J1_c P77 J1_d^T
     P77 = p7[:, :7]
     rows = torch.einsum("cij,jn->cin", J1, p7)               # (C, 6, N)
     B = torch.einsum("cij,jk->cik", J1, P77)                 # (C, 6, 7)
@@ -195,9 +207,7 @@ def augment_plain(P: torch.Tensor, J1: torch.Tensor, J2: torch.Tensor,
 
     A_ext = torch.cat([rows.reshape(K, N),
                        torch.zeros((1, N), dtype=dtype, device=dev)], dim=0)
-    G = torch.index_select(A_ext, 0, idx_map)                # (N, N)
-    Pn = torch.where(wrote[:, None], G, P)
-    return torch.where(wrote[None, :], G.T, Pn)
+    return A_ext, idx_map, wrote
 
 
 def augment_cuda(P: torch.Tensor, ops: torch.Tensor, slots: torch.Tensor,

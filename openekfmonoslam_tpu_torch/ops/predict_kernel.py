@@ -38,13 +38,14 @@ from openekfmonoslam_tpu_torch.ops import batched, cuda_lib
 LAUNCHES = cuda_lib.LaunchCounter("predict")
 
 
-def predict_plain(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
-                  ang: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x', P') by the chain of filter/predict.py, in P's dtype."""
+def motion_terms(x: torch.Tensor, dt: float, lin: float, ang: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(camera state x'[0:13], F (13, 13), Qc = G diag(q) G^T (13, 13)) of
+    one predict step, in x's dtype."""
     from openekfmonoslam_tpu_torch.filter.predict import (
         motion_jacobian, motion_model)
 
-    dtype, dev = P.dtype, P.device
+    dtype, dev = x.dtype, x.device
     cam = x[:CAM_DIM]
     F = motion_jacobian(cam, dt)
     cam_new = motion_model(cam, dt)
@@ -58,12 +59,19 @@ def predict_plain(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
                               F[3:7, 10:13]], dim=1),
                    torch.cat([eye3, z3], dim=1),
                    torch.cat([z3, eye3], dim=1)])
-    q_diag = torch.tensor([lin] * 3 + [ang] * 3, dtype=dtype, device=dev)
+    # filled on the device: a tensor made from a list copies from the host
+    q_diag = torch.cat([torch.full((3,), lin, dtype=dtype, device=dev),
+                        torch.full((3,), ang, dtype=dtype, device=dev)])
+    return cam_new, F, G @ (q_diag[:, None] * G.T)
 
+
+def predict_plain(P: torch.Tensor, x: torch.Tensor, dt: float, lin: float,
+                  ang: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x', P') by the chain of filter/predict.py, in P's dtype."""
+    cam_new, F, Qc = motion_terms(x, dt, lin, ang)
     top = F @ P[:CAM_DIM, :]
     P = shardable.place_rows(P, top, 0)
     P = shardable.place_cols(P, P[:, :CAM_DIM] @ F.T, 0)
-    Qc = G @ (q_diag[:, None] * G.T)
     P = shardable.place_block(P, P[:CAM_DIM, :CAM_DIM] + Qc, 0, 0)
     x = torch.cat([cam_new, x[CAM_DIM:]])
     return x, P

@@ -31,10 +31,17 @@ applies, and otherwise (the large map, N = 1024; every update of the
 parity mode) the chain whose S^-1 is the S-inverse kernels' batched
 launch (ops/sinv.py), one launch set for B streams.  The front ends'
 PyTorch chains (ORB's pyramid, the DoG / DoH scale spaces, Harris, the
-SURF-64 descriptors, NCC's correlation) run under vmap as they are.  The
-JAX package's mesh arguments and its two-axis layout
-(``make_batched_step_2d``, ``batch_state_shardings_2d``) wait for the
-port's P sharding (ROADMAP Queue 1 item 21).
+SURF-64 descriptors, NCC's correlation) run under vmap as they are.
+
+Meshes (torch.distributed, parallel/multihost.py): with ``mesh`` the
+streams are split over its axis ``axis`` ("d"); each rank's states hold
+its ``multihost.local_batch_slice`` of them (``make_batch_states(...,
+mesh=mesh)``), it is given every stream's frames and runs its own slice,
+and the ranks exchange nothing.  The two-axis layout
+(``make_batched_step_2d``, ``batch_state_shardings_2d``) splits the
+streams over ``d_axis`` and each stream's P into row strips over
+``p_axis`` (parallel/sharding.py); a rank steps its streams through the
+sharded step one after another.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
 from openekfmonoslam_tpu_torch.filter import mapman
 from openekfmonoslam_tpu_torch.filter.state import SlamState
+from openekfmonoslam_tpu_torch.parallel import multihost, sharding
 
 
 def _live(name: str) -> torch.profiler.record_function:
@@ -56,22 +64,40 @@ def _live(name: str) -> torch.profiler.record_function:
     return torch.profiler.record_function(LIVE_PHASE_PREFIX + name)
 
 
-def make_batch_states(runtime: SlamRuntime, batch: int,
-                      seeds=None) -> SlamState:
+def make_batch_states(runtime: SlamRuntime, batch: int, seeds=None,
+                      mesh=None, axis: str = "d",
+                      p_axis: str | None = None) -> SlamState:
     """A SlamState whose every field gains a leading (B,) axis, each with
     its single-stream dtype (the descriptor slots int32 words for binary
     descriptors, float32 for SURF-64 and PATCH); ``seeds`` (B ints) sets
-    each stream's ``rng`` (filter/state.py's int64 seed)."""
+    each stream's ``rng`` (filter/state.py's int64 seed).  With ``mesh``:
+    this rank's slice of the B streams over ``axis``, and with ``p_axis``
+    each stream's P is this rank's rows of it over that axis."""
     base = runtime.make_initial_state()
+    if p_axis is not None:
+        base = sharding.shard_state(base, mesh, p_axis)
+    if seeds is not None:
+        seeds = list(seeds)
+        if len(seeds) != batch:
+            raise ValueError(f"seeds: {batch} expected, got {len(seeds)}")
+    if mesh is not None:
+        local = multihost.local_batch_slice(batch, mesh, axis)
+        batch = local.stop - local.start
+        seeds = seeds[local] if seeds is not None else None
     states = SlamState(*(t.expand((batch,) + tuple(t.shape)).contiguous()
                          for t in base))
     if seeds is not None:
-        rng = torch.as_tensor(list(seeds), dtype=torch.int64,
-                              device=runtime.device)
-        if rng.shape != (batch,):
-            raise ValueError(f"seeds: {batch} expected, got {rng.shape}")
-        states = states._replace(rng=rng)
+        states = states._replace(rng=torch.as_tensor(
+            seeds, dtype=torch.int64, device=runtime.device))
     return states
+
+
+def _local(batch, mesh, axis: str):
+    """This rank's slice over ``mesh``'s ``axis`` of a stream batch (all of
+    it without a mesh)."""
+    if mesh is None:
+        return batch
+    return batch[multihost.local_batch_slice(len(batch), mesh, axis)]
 
 
 def batched_init_recorded(runtime: SlamRuntime, states: SlamState, grays):
@@ -81,11 +107,12 @@ def batched_init_recorded(runtime: SlamRuntime, states: SlamState, grays):
     return vmap(runtime.init_step_recorded)(states, runtime._tensor(grays))
 
 
-def make_batched_init(runtime: SlamRuntime):
+def make_batched_init(runtime: SlamRuntime, mesh=None, axis: str = "d"):
     """``init_step`` over the stream axis: (states, grays (B, H, W)) ->
-    states."""
+    states; with ``mesh``, this rank's states and slice of the B frames."""
     def batched_init(states: SlamState, grays) -> SlamState:
-        return batched_init_recorded(runtime, states, grays)[0]
+        return batched_init_recorded(runtime, states,
+                                     _local(grays, mesh, axis))[0]
 
     return batched_init
 
@@ -155,23 +182,82 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
     return states, records
 
 
-def make_batched_step(runtime: SlamRuntime):
+def make_batched_step(runtime: SlamRuntime, mesh=None, axis: str = "d"):
     """(states, grays (B, H, W)) -> (states, records): ``batched_step``
-    bound to ``runtime``."""
+    bound to ``runtime``; with ``mesh``, on this rank's states and slice
+    of the B frames."""
     def step(states: SlamState, grays) -> tuple[SlamState, StepRecord]:
-        return batched_step(runtime, states, grays)
+        return batched_step(runtime, states, _local(grays, mesh, axis))
 
     return step
 
 
-def scan_batched_sequences(runtime: SlamRuntime, states: SlamState, frames
+def scan_batched_sequences(runtime: SlamRuntime, states: SlamState, frames,
+                           mesh=None, axis: str = "d"
                            ) -> tuple[SlamState, StepRecord]:
-    """B sequences stepped together: ``frames`` (B, T, H, W) uploaded once;
-    returns the final states and the records stacked with leading (T, B)
-    axes."""
-    frames = runtime._tensor(frames)
+    """B sequences stepped together: ``frames`` (B, T, H, W) uploaded once
+    (with ``mesh``, this rank's slice of them, for its states); returns
+    the final states and the records stacked with leading (T, B) axes."""
+    frames = runtime._tensor(_local(frames, mesh, axis))
     records = []
     for t in range(frames.shape[1]):
         states, rec = batched_step(runtime, states, frames[:, t])
         records.append(rec)
     return states, stack_records(records)
+
+
+def batch_state_shardings_2d(mesh, d_axis: str = "d",
+                             p_axis: str = "p") -> SlamState:
+    """The placements of the two-axis layout: every field's stream axis
+    over ``d_axis``, and P (B, N, N) also row-split over ``p_axis``; the
+    rest is replicated within a stream's ``p_axis`` group."""
+    by_stream = sharding.placements(mesh, {d_axis: 0})
+    return SlamState(*(sharding.placements(mesh, {d_axis: 0, p_axis: 1})
+                       if name == "P" else by_stream
+                       for name in SlamState._fields))
+
+
+def _streams(states: SlamState) -> list[SlamState]:
+    """The streams of a batched state, one state each."""
+    return [SlamState(*(f[b] for f in states))
+            for b in range(states.x.shape[0])]
+
+
+def _stacked(states: list[SlamState]) -> SlamState:
+    return SlamState(*(torch.stack(f) for f in zip(*states)))
+
+
+def make_batched_init_2d(runtime: SlamRuntime, mesh, d_axis: str = "d",
+                         p_axis: str = "p"):
+    """(states, grays (B, H, W)) -> states in the two-axis layout: this
+    rank's streams (``make_batch_states(..., mesh=mesh, axis=d_axis,
+    p_axis=p_axis)``) through the sharded ``init_step``.  The callable's
+    ``runtime`` is the ``ShardedRuntime`` it runs."""
+    srt = sharding._sharded_runtime(runtime, mesh, p_axis)
+
+    def init(states: SlamState, grays) -> SlamState:
+        grays = srt._tensor(_local(grays, mesh, d_axis))
+        return _stacked([srt.init_step(st, g)
+                         for st, g in zip(_streams(states), grays)])
+
+    init.runtime = srt
+    return init
+
+
+def make_batched_step_2d(runtime: SlamRuntime, mesh, d_axis: str = "d",
+                         p_axis: str = "p"):
+    """(states, grays (B, H, W)) -> (states, records) in the two-axis
+    layout: this rank's streams, each with P row-split over ``p_axis``,
+    through the sharded step one after another (records with a leading
+    axis of this rank's streams).  The callable's ``runtime`` is the
+    ``ShardedRuntime`` it runs."""
+    srt = sharding._sharded_runtime(runtime, mesh, p_axis)
+
+    def step(states: SlamState, grays) -> tuple[SlamState, StepRecord]:
+        grays = srt._tensor(_local(grays, mesh, d_axis))
+        outs = [srt.step(st, g) for st, g in zip(_streams(states), grays)]
+        return (_stacked([o[0] for o in outs]),
+                stack_records([o[1] for o in outs]))
+
+    step.runtime = srt
+    return step

@@ -31,7 +31,8 @@ def test_every_port_module_imports_without_jax():
                  "vision.ncc", "graph.pose_graph", "graph.loop_closure",
                  "serving.protocol", "serving.server",
                  "parallel.batch_runner", "io.native_loader", "ops.batched",
-                 "viz.draw", "viz.viewer3d"):
+                 "viz.draw", "viz.viewer3d", "parallel.comm",
+                 "parallel.sharding", "parallel.multihost"):
         assert "openekfmonoslam_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

@@ -4,12 +4,12 @@ engine/scan_runner.py).
 The JAX package uploads a sequence once and runs the step under
 ``lax.scan``.  Here the frames are uploaded once as a (T, H, W) uint8
 tensor and a Python loop calls ``step`` on each; the loop's one host read
-a frame is the step's own (engine/step.py ``phase_mapman``).
+a frame is the step's own (engine/step.py ``phase_mapman``).  Each frame's
+phases are its ``step.<phase>`` spans (spans.py): the CLI's
+``--phase-timing`` collects them.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -59,48 +59,6 @@ def scan_in_chunks(runtime: SlamRuntime, state: SlamState, frames,
                                   runtime._tensor(frames[i:i + chunk]))
         parts.append([f.cpu().numpy() for f in recs])
     return state, StepRecord(*(np.concatenate(f) for f in zip(*parts)))
-
-
-def phase_share_calibration(runtime: SlamRuntime, frames) -> np.ndarray:
-    """The 7 reference phases' shares of the step time (EKF.cpp's
-    Prediction/Matching/Ransac/UpdateLI/RescueOutliers/UpdateHI/
-    MapManagement), from bracketing each phase method between device syncs
-    over ``frames`` (T, H, W): init on frame 0, frame 1 unmeasured (first
-    calls), frames 2.. measured.  Scan mode attributes its per-frame time
-    by these shares."""
-    sync = (torch.cuda.synchronize if runtime.device.type == "cuda"
-            else (lambda: None))
-    rt = runtime
-    state = rt.init_step(rt.make_initial_state(), frames[0])
-    totals = np.zeros(7)
-
-    def run_frame(st, frame, acc):
-        t = [0.0] * 7
-
-        def bracket(i, fn, *a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            sync()
-            t[i] = time.perf_counter() - t0
-            return out
-
-        st, pred = bracket(0, rt.phase_predict, st)
-        m, aux, in_ellipse = bracket(1, rt.phase_match, st, pred, frame)
-        res = bracket(2, rt.phase_ransac, st, pred, m)
-        st = bracket(3, rt.phase_update_li, st, pred, m, res.inliers)
-        pred2, rescued = bracket(4, rt.phase_rescue, st, m, res.outliers)
-        st = bracket(5, rt.phase_update_hi, st, pred2, m, rescued)
-        st, *_ = bracket(6, rt.phase_mapman, st, pred, m,
-                         res.inliers | rescued, aux, in_ellipse)
-        if acc is not None:
-            acc += np.asarray(t)
-        return st
-
-    state = run_frame(state, rt._tensor(frames[1]), None)
-    for f in frames[2:]:
-        state = run_frame(state, rt._tensor(f), totals)
-    s = totals.sum()
-    return totals / s if s > 0 else np.full(7, 1.0 / 7)
 
 
 def run_sequence_on_device(runtime: SlamRuntime, frames, chunk: int = 0):

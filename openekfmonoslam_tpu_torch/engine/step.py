@@ -45,12 +45,13 @@ from openekfmonoslam_tpu_torch.filter import predict as pred_mod
 from openekfmonoslam_tpu_torch.filter import ransac as ransac_mod
 from openekfmonoslam_tpu_torch.filter import update as upd_mod
 from openekfmonoslam_tpu_torch.filter.state import SlamState, make_initial_state
+from openekfmonoslam_tpu_torch.spans import span
 from openekfmonoslam_tpu_torch.vision import detect, fast, matching, ncc
 from openekfmonoslam_tpu_torch.vision.frontend import (Frontend,
                                                        check_matcher,
                                                        make_frontend)
 
-# profiler range prefixes of step_injected's and step's phases
+# span name prefixes of step_injected's and step's phases (spans.py)
 PHASE_PREFIX = "step_injected."
 LIVE_PHASE_PREFIX = "step."
 
@@ -85,19 +86,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the GPU unless the caller "
             "passes device='cpu'")
     return torch.device("cuda", 0)
-
-
-def _phase(name: str, prefix: str = PHASE_PREFIX
-           ) -> torch.profiler.record_function:
-    """A profiler range around one phase of ``step_injected`` (``prefix``
-    PHASE_PREFIX) or ``step`` (LIVE_PHASE_PREFIX); it records nothing
-    unless ``torch.profiler`` is on (tools/profile_torch_replay.py and
-    chip_smoke.py read the ranges by their prefix)."""
-    return torch.profiler.record_function(prefix + name)
-
-
-def _live(name: str) -> torch.profiler.record_function:
-    return _phase(name, LIVE_PHASE_PREFIX)
 
 
 class SlamRuntime:
@@ -236,25 +224,32 @@ class SlamRuntime:
         gate-region mask, then detection, gated 2-NN and subpixel
         refinement, or the detection-free NCC search (vision/ncc.py)."""
         cfg = self.config
-        aux = self.frontend.precompute(gray)
-        in_ellipse = matching.ellipse_union_mask(
-            tuple(gray.shape), pred.uv, pred.S, pred.visible, self.gate)
+        with span("match.precompute"):
+            aux = self.frontend.precompute(gray)
+        with span("match.gate"):
+            in_ellipse = matching.ellipse_union_mask(
+                tuple(gray.shape), pred.uv, pred.S, pred.visible, self.gate)
         if cfg.matcher == "ncc":
-            return self.match_ncc(state, pred, aux), aux, in_ellipse
-        kps = fast.detect_keypoints(
-            aux["score_nms"], in_ellipse & self._border_mask(gray.shape),
-            cfg.max_keypoints)
-        kp_xy = torch.stack([kps.yx[:, 1], kps.yx[:, 0]],
-                            dim=-1).to(self.dtype)
-        kp_desc = self.frontend.describe(aux, kps.yx)
-        m = matching.match_predictions(
-            pred.uv, pred.S, pred.visible, state.descriptors, kp_xy,
-            kps.valid, kp_desc, self.gate,
-            cfg.ekf.matching_comp_coef_second_best_vs_first,
-            distance_fn=self.frontend.distance)
+            with span("match.ncc"):
+                return self.match_ncc(state, pred, aux), aux, in_ellipse
+        with span("match.detect"):
+            kps = fast.detect_keypoints(
+                aux["score_nms"], in_ellipse & self._border_mask(gray.shape),
+                cfg.max_keypoints)
+        with span("match.describe"):
+            kp_xy = torch.stack([kps.yx[:, 1], kps.yx[:, 0]],
+                                dim=-1).to(self.dtype)
+            kp_desc = self.frontend.describe(aux, kps.yx)
+        with span("match.nn"):
+            m = matching.match_predictions(
+                pred.uv, pred.S, pred.visible, state.descriptors, kp_xy,
+                kps.valid, kp_desc, self.gate,
+                cfg.ekf.matching_comp_coef_second_best_vs_first,
+                distance_fn=self.frontend.distance)
         if cfg.subpixel_matches:
-            m = m._replace(z=fast.subpixel_refine(
-                aux["score_raw"].to(self.dtype), m.z, m.matched))
+            with span("match.subpixel"):
+                m = m._replace(z=fast.subpixel_refine(
+                    aux["score_raw"].to(self.dtype), m.z, m.matched))
         return m, aux, in_ellipse
 
     def match_ncc(self, state: SlamState, pred, aux) -> matching.Matches:
@@ -307,21 +302,23 @@ class SlamRuntime:
         """Counters plus the bad-ratio and unseen-pressure culls
         (MapManagement.cpp:74-307, EKF.cpp:567-586).  Returns (state,
         do_mm, needed), the last two 0-dim tensors on the device."""
-        ekf = self.config.ekf
-        state = mapman.update_counters(state, pred.visible, inliers_all,
-                                       m.desc, m.refreshed)
-        freq = ekf.map_management_frequency
-        do_mm = (state.frame % max(freq, 1) == 0) & (freq > 0)
-        needed = ekf.min_matches_per_image - torch.sum(inliers_all,
-                                                       dtype=torch.int32)
-        bad = mapman.bad_feature_mask(state, ekf.good_feature_matching_percent)
-        state = self.remove_features(state, bad & do_mm)
-        pressure = mapman.map_pressure(
-            state, needed, ekf.always_remove_unseen_map_features,
-            ekf.max_map_features_count, ekf.max_map_size)
-        unseen = state.active & ~pred.visible
-        state = self.remove_features(state, unseen & pressure & do_mm)
-        return state, do_mm, needed
+        with span("mapman.maintain"):
+            ekf = self.config.ekf
+            state = mapman.update_counters(state, pred.visible, inliers_all,
+                                           m.desc, m.refreshed)
+            freq = ekf.map_management_frequency
+            do_mm = (state.frame % max(freq, 1) == 0) & (freq > 0)
+            needed = ekf.min_matches_per_image - torch.sum(
+                inliers_all, dtype=torch.int32)
+            bad = mapman.bad_feature_mask(state,
+                                          ekf.good_feature_matching_percent)
+            state = self.remove_features(state, bad & do_mm)
+            pressure = mapman.map_pressure(
+                state, needed, ekf.always_remove_unseen_map_features,
+                ekf.max_map_features_count, ekf.max_map_size)
+            unseen = state.active & ~pred.visible
+            state = self.remove_features(state, unseen & pressure & do_mm)
+            return state, do_mm, needed
 
     def detect_candidates(self, state: SlamState, pred, aux, in_ellipse,
                           n_iter: int, limit: torch.Tensor | None = None):
@@ -330,19 +327,21 @@ class SlamRuntime:
         ``n_iter`` zone picks, and at most ``limit`` (a 0-dim tensor, the
         batched step's per-stream count) when given.  Returns (uv (C, 2)
         float32, desc (C, W), valid (C,))."""
-        cfg = self.config
-        h, w = aux["score_nms"].shape
-        out_mask = ~in_ellipse & self._border_mask((h, w))
-        kps2 = fast.detect_keypoints(aux["score_nms"], out_mask,
-                                     cfg.max_keypoints)
-        kp2_xy = torch.stack([kps2.yx[:, 1], kps2.yx[:, 0]],
-                             dim=-1).to(torch.float32)
-        picked = detect.select_zone_balanced(
-            kp2_xy, kps2.score, kps2.valid, pred.uv.to(torch.float32),
-            pred.visible, n_iter, self.exclusion_radius, self.zones_in_a_row,
-            w, h, max_new=cfg.max_features, limit=limit)
-        new_desc = self.frontend.describe(aux, kps2.yx[picked.kp_index])
-        return picked.uv, new_desc, picked.valid
+        with span("mapman.detect"):
+            cfg = self.config
+            h, w = aux["score_nms"].shape
+            out_mask = ~in_ellipse & self._border_mask((h, w))
+            kps2 = fast.detect_keypoints(aux["score_nms"], out_mask,
+                                         cfg.max_keypoints)
+            kp2_xy = torch.stack([kps2.yx[:, 1], kps2.yx[:, 0]],
+                                 dim=-1).to(torch.float32)
+            picked = detect.select_zone_balanced(
+                kp2_xy, kps2.score, kps2.valid, pred.uv.to(torch.float32),
+                pred.visible, n_iter, self.exclusion_radius,
+                self.zones_in_a_row, w, h, max_new=cfg.max_features,
+                limit=limit)
+            new_desc = self.frontend.describe(aux, kps2.yx[picked.kp_index])
+            return picked.uv, new_desc, picked.valid
 
     def phase_mapman(self, state: SlamState, pred, m, inliers_all, aux,
                      in_ellipse):
@@ -356,40 +355,44 @@ class SlamRuntime:
         cfg = self.config
         state, do_mm, needed = self.mapman_maintain(state, pred, m,
                                                     inliers_all)
-        state = self.convert_feature(state, do_mm)
+        with span("mapman.convert"):
+            state = self.convert_feature(state, do_mm)
 
         C, F = cfg.max_features, state.n_features
         dev = self.device
-        add, n_needed = torch.stack(
-            [(do_mm & (needed > 0)).to(torch.int32), needed]).tolist()
+        with span("read.add"):
+            add, n_needed = torch.stack(
+                [(do_mm & (needed > 0)).to(torch.int32), needed]).tolist()
         if not add:
             return (state, torch.zeros((C, 2), dtype=self.dtype, device=dev),
                     torch.zeros((C,), dtype=torch.bool, device=dev),
                     torch.full((C,), F, dtype=torch.int32, device=dev))
         cand_uv, cand_desc, cand_valid = self.detect_candidates(
             state, pred, aux, in_ellipse, min(n_needed, C))
-        cand_uv = cand_uv.to(self.dtype)
-        new_slot, new_ok = feat_mod.assign_slots(state.active, cand_valid)
-        state = self.add_features(state, cand_uv, cand_desc, cand_valid)
+        with span("mapman.add"):
+            cand_uv = cand_uv.to(self.dtype)
+            new_slot, new_ok = feat_mod.assign_slots(state.active,
+                                                     cand_valid)
+            state = self.add_features(state, cand_uv, cand_desc, cand_valid)
         return state, cand_uv, new_ok, new_slot
 
     def step(self, state: SlamState, gray) -> tuple[SlamState, StepRecord]:
         """One full frame (EKF::step, EKF.cpp:242-666); each phase is a
-        ``step.<phase>`` profiler range."""
+        ``step.<phase>`` span (spans.py)."""
         gray = self._tensor(gray)
-        with _live("predict"):
+        with span("step.predict"):
             state, pred = self.phase_predict(state)
-        with _live("match"):
+        with span("step.match"):
             m, aux, in_ellipse = self.phase_match(state, pred, gray)
-        with _live("ransac"):
+        with span("step.ransac"):
             res = self.phase_ransac(state, pred, m)
-        with _live("update_li"):
+        with span("step.update_li"):
             state = self.phase_update_li(state, pred, m, res.inliers)
-        with _live("rescue"):
+        with span("step.rescue"):
             pred2, rescued = self.phase_rescue(state, m, res.outliers)
-        with _live("update_hi"):
+        with span("step.update_hi"):
             state = self.phase_update_hi(state, pred2, m, rescued)
-        with _live("mapman"):
+        with span("step.mapman"):
             state, new_uv, new_ok, new_slot = self.phase_mapman(
                 state, pred, m, res.inliers | rescued, aux, in_ellipse)
         return state, self.make_record(state, pred, m, res, rescued, new_uv,
@@ -436,15 +439,15 @@ class SlamRuntime:
         z = self._tensor(z, self.dtype)
         matched = self._tensor(matched, torch.bool)
 
-        with _phase("predict"):
+        with span("step_injected.predict"):
             state = state._replace(frame=state.frame + 1)
             state = pred_mod.predict(state, cfg)
-        with _phase("measure"):
+        with span("step_injected.measure"):
             pred = meas_mod.predict_measurements(state, cam,
                                                  quirks=self.quirks,
                                                  hp_layout=self.hp_layout)
             matched = matched & pred.visible
-        with _phase("ransac"):
+        with span("step_injected.ransac"):
             res = ransac_mod.ransac(
                 state, pred, z, matched, cam,
                 ekf.ransac_threshold_predict_distance,
@@ -452,23 +455,23 @@ class SlamRuntime:
                 cfg.max_hypotheses, cfg.ransac_parity_visit,
                 visit_key=state.birth if self.quirks else None,
                 deadband=self.quirks)
-        with _phase("update_li"):
+        with span("step_injected.update_li"):
             state = upd_mod.update(state, pred, z, res.inliers, pixel_error,
                                    deadband=self.quirks)
-        with _phase("rescue"):
+        with span("step_injected.rescue"):
             pred2 = meas_mod.predict_measurements(state, cam,
                                                   quirks=self.quirks,
                                                   hp_layout=self.hp_layout)
             rescued = ransac_mod.rescue_outliers(
                 pred2, z, res.outliers, ekf.ransac_chi2_threshold)
-        with _phase("update_hi"):
+        with span("step_injected.update_hi"):
             state = upd_mod.update(state, pred2, z, rescued, pixel_error,
                                    deadband=self.quirks)
             inliers_all = res.inliers | rescued
 
         # map management mirrors the live pipeline (EKF.cpp:567-612):
         # counters every frame; cull/convert under the frequency gate
-        with _phase("mapman"):
+        with span("step_injected.mapman"):
             state = mapman.update_counters(state, pred.visible, inliers_all,
                                            state.descriptors)
             freq = ekf.map_management_frequency
@@ -496,7 +499,7 @@ class SlamRuntime:
         rec_ok = torch.zeros((C,), dtype=torch.bool, device=dev)
         rec_slot = torch.full((C,), F, dtype=torch.int32, device=dev)
         if new_uv is not None:
-            with _phase("add"):
+            with span("step_injected.add"):
                 new_uv = self._tensor(new_uv, self.dtype)
                 n_new = new_uv.shape[0]
                 if new_desc is None:

@@ -28,6 +28,7 @@ from openekfmonoslam_tpu_torch.filter.measure import (
     Prediction, measure_one, point_in_camera_frame)
 from openekfmonoslam_tpu_torch.filter.state import CAM_DIM, FEAT_DIM, SlamState
 from openekfmonoslam_tpu_torch.filter.update import deadbanded
+from openekfmonoslam_tpu_torch.spans import span
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -155,37 +156,40 @@ def ransac(state: SlamState, pred: Prediction, z: torch.Tensor,
     insertion order); ``deadband`` applies the DELTA deadband inside the
     state-only updates.  The winner is picked on the device with
     ``index_select``: indexing by a 0-dim tensor would read it back."""
-    states_x = _batched_state_only_updates(state, pred, z, matched,
-                                           pixel_error, deadband=deadband)
-    support, good = _support_counts(states_x, state, camera, z, matched,
-                                    threshold)
-    perm = None
-    if visit_key is not None:
-        # matched slots in key order (stable); unmatched ones sink to the
-        # end and are mask-skipped anyway
-        key = torch.where(matched, visit_key.to(torch.int32),
-                          torch.full_like(support, INT32_MAX))
-        perm = torch.sort(key, stable=True).indices
-        support = torch.index_select(support, 0, perm)
-        matched_v = torch.index_select(matched, 0, perm)
-    else:
-        matched_v = matched
-    if parity_visit:
-        best_v, best_s, visited = _adaptive_visit_scan(
-            support, matched_v, all_inliers_probability, max_hypotheses)
-    else:
-        masked_support = torch.where(matched_v, support,
-                                     torch.full_like(support, -1))
-        best_v = torch.argmax(masked_support)
-        best_s = torch.clamp(torch.max(masked_support), min=0)
-        visited = torch.sum(matched.to(torch.int32))
-    best_i = best_v.reshape(1)
-    if perm is not None:
-        best_i = torch.index_select(perm, 0, best_i)
-    best_good = torch.index_select(good, 0, best_i)[0]
-    inliers = best_good & matched & (best_s > 0)
-    return RansacResult(inliers=inliers, outliers=matched & ~inliers,
-                        best_support=best_s, hypotheses_visited=visited)
+    with span("ransac.hypotheses"):
+        states_x = _batched_state_only_updates(state, pred, z, matched,
+                                               pixel_error, deadband=deadband)
+    with span("ransac.support"):
+        support, good = _support_counts(states_x, state, camera, z, matched,
+                                        threshold)
+    with span("ransac.pick"):
+        perm = None
+        if visit_key is not None:
+            # matched slots in key order (stable); unmatched ones sink to the
+            # end and are mask-skipped anyway
+            key = torch.where(matched, visit_key.to(torch.int32),
+                              torch.full_like(support, INT32_MAX))
+            perm = torch.sort(key, stable=True).indices
+            support = torch.index_select(support, 0, perm)
+            matched_v = torch.index_select(matched, 0, perm)
+        else:
+            matched_v = matched
+        if parity_visit:
+            best_v, best_s, visited = _adaptive_visit_scan(
+                support, matched_v, all_inliers_probability, max_hypotheses)
+        else:
+            masked_support = torch.where(matched_v, support,
+                                         torch.full_like(support, -1))
+            best_v = torch.argmax(masked_support)
+            best_s = torch.clamp(torch.max(masked_support), min=0)
+            visited = torch.sum(matched.to(torch.int32))
+        best_i = best_v.reshape(1)
+        if perm is not None:
+            best_i = torch.index_select(perm, 0, best_i)
+        best_good = torch.index_select(good, 0, best_i)[0]
+        inliers = best_good & matched & (best_s > 0)
+        return RansacResult(inliers=inliers, outliers=matched & ~inliers,
+                            best_support=best_s, hypotheses_visited=visited)
 
 
 def rescue_outliers(pred_new: Prediction, z: torch.Tensor,

@@ -50,18 +50,11 @@ import torch
 from torch.func import vmap
 
 from openekfmonoslam_tpu_torch.engine.scan_runner import stack_records
-from openekfmonoslam_tpu_torch.engine.step import (LIVE_PHASE_PREFIX,
-                                                   SlamRuntime, StepRecord)
+from openekfmonoslam_tpu_torch.engine.step import SlamRuntime, StepRecord
 from openekfmonoslam_tpu_torch.filter import features as feat_mod
-from openekfmonoslam_tpu_torch.filter import mapman
 from openekfmonoslam_tpu_torch.filter.state import SlamState
 from openekfmonoslam_tpu_torch.parallel import multihost, sharding
-
-
-def _live(name: str) -> torch.profiler.record_function:
-    """The single-stream step's profiler range of a phase (``step.<name>``),
-    here around the phase of all B streams."""
-    return torch.profiler.record_function(LIVE_PHASE_PREFIX + name)
+from openekfmonoslam_tpu_torch.spans import span
 
 
 def make_batch_states(runtime: SlamRuntime, batch: int, seeds=None,
@@ -122,39 +115,37 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
     """The frame step over a leading (B,) stream axis, rare paths gated at
     batch level; ``grays`` (B, H, W).  Returns (states, records), each
     record field with a leading (B,) axis.  Each phase is a ``step.<phase>``
-    profiler range, as in ``SlamRuntime.step``."""
+    span, as in ``SlamRuntime.step``, with the same spans inside it."""
     rt = runtime
     cfg = rt.config
     C, F = cfg.max_features, cfg.max_features
-    grays = rt._tensor(grays)
+    with span("batch.upload"):
+        grays = rt._tensor(grays)
     B = grays.shape[0]
-    with _live("predict"):
+    with span("step.predict"):
         states, pred = vmap(rt.phase_predict)(states)
-    with _live("match"):
+    with span("step.match"):
         m, aux, in_ellipse = vmap(rt.phase_match)(states, pred, grays)
-    with _live("ransac"):
+    with span("step.ransac"):
         res = vmap(rt.phase_ransac)(states, pred, m)
-    with _live("update_li"):
+    with span("step.update_li"):
         states = vmap(rt.phase_update_li)(states, pred, m, res.inliers)
-    with _live("rescue"):
+    with span("step.rescue"):
         pred2, rescued = vmap(rt.phase_rescue)(states, m, res.outliers)
-    with _live("update_hi"):
+    with span("step.update_hi"):
         states = vmap(rt.phase_update_hi)(states, pred2, m, rescued)
-    with _live("mapman"):
+    with span("step.mapman"):
         states, do_mm, needed = vmap(rt.mapman_maintain)(
             states, pred, m, res.inliers | rescued)
-        thr = cfg.ekf.inverse_depth_linearity_index_threshold
-        # the parity mode scans in insertion order, as the single-stream
-        # step does
-        states = vmap(lambda st, en: mapman.convert_one_to_xyz(
-            st, thr, enable=en,
-            order_key=st.birth if rt.quirks else None))(states, do_mm)
+        with span("mapman.convert"):
+            states = vmap(rt.convert_feature)(states, do_mm)
 
         # the batch's one host read: which streams need features, and how
         # many each
         flags = do_mm & (needed > 0)
-        wants, counts = torch.stack([flags.to(torch.int32),
-                                     needed]).tolist()
+        with span("read.add"):
+            wants, counts = torch.stack([flags.to(torch.int32),
+                                         needed]).tolist()
         dev = rt.device
         if not any(wants):
             new_uv = torch.zeros((B, C, 2), dtype=rt.dtype, device=dev)
@@ -167,16 +158,17 @@ def batched_step(runtime: SlamRuntime, states: SlamState, grays
                 lambda st, pr, ax, ie, lim: rt.detect_candidates(
                     st, pr, ax, ie, n_iter, lim))(states, pred, aux,
                                                   in_ellipse, limit)
-            cand_uv = cand_uv.to(rt.dtype)
-            cand_valid = cand_valid & flags[:, None]
-            new_slot, new_ok = vmap(feat_mod.assign_slots)(states.active,
-                                                           cand_valid)
-            states = vmap(lambda st, uv, de, sl, ok:
-                          feat_mod._add_features_impl(
-                              st, rt.camera, cfg, uv, de, sl, ok))(
-                states, cand_uv, cand_desc, new_slot, new_ok)
-            new_uv = torch.where(flags[:, None, None], cand_uv,
-                                 torch.zeros_like(cand_uv))
+            with span("mapman.add"):
+                cand_uv = cand_uv.to(rt.dtype)
+                cand_valid = cand_valid & flags[:, None]
+                new_slot, new_ok = vmap(feat_mod.assign_slots)(
+                    states.active, cand_valid)
+                states = vmap(lambda st, uv, de, sl, ok:
+                              feat_mod._add_features_impl(
+                                  st, rt.camera, cfg, uv, de, sl, ok))(
+                    states, cand_uv, cand_desc, new_slot, new_ok)
+                new_uv = torch.where(flags[:, None, None], cand_uv,
+                                     torch.zeros_like(cand_uv))
     records = vmap(rt.make_record)(states, pred, m, res, rescued, new_uv,
                                    new_ok, new_slot)
     return states, records

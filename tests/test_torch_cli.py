@@ -144,7 +144,7 @@ def test_scan_mode_matches_interactive(files, interactive):
     loaded = jrr.read_output_yml(str(out / "output.yml"))
     assert [r["total_matches"] for r in loaded] == [
         r["total_matches"] for r in recs]
-    assert loaded[0]["phase_times_source"] == "calibrated-shares"
+    assert loaded[0]["phase_times_source"] == "measured"
     assert sum(loaded[0]["phase_times_us"].values()) > 0
 
 

@@ -281,8 +281,8 @@ from openekfmonoslam_tpu_torch.io.sources import SlidingWindowSource
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            cuda_lib, init_kernel,
                                            measure_kernel, predict_kernel,
-                                           sinv, spd_core, star_kernel,
-                                           update_kernel)
+                                           ransac_kernel, sinv, spd_core,
+                                           star_kernel, update_kernel)
 from openekfmonoslam_tpu_torch.parallel import (batch_runner, multihost,
                                                 sharding)
 from openekfmonoslam_tpu_torch.serving import server as server_mod
@@ -352,6 +352,11 @@ KERNELS = {
     "cholsolve": dict(counter=cholsolve.LAUNCHES,
                       source="openekfmonoslam_tpu_torch/csrc/cholsolve.cu",
                       replaces="openekfmonoslam_tpu/ops/cholsolve.py:102"),
+    # RANSAC's hypotheses and support count, both variants (the deadband
+    # one in the parity mode)
+    "ransac_support": dict(counter=ransac_kernel.LAUNCHES,
+                           source="openekfmonoslam_tpu_torch/csrc/ransac.cu",
+                           replaces="none: RANSAC is XLA in the JAX package"),
 }
 
 
@@ -795,6 +800,84 @@ def check_measure(failures, tag, camera, cam7, feats, is_xyz, active,
     return err, ref
 
 
+def ransac_frame(rng, F: int, N: int, camera, dev) -> tuple:
+    """A RANSAC frame at the main path's shapes: x (N) holding a camera and
+    _measure_scene's F slots, the prediction's uv, an H P of a frame's
+    scale and an SPD S per slot, matches 0.7 px off with a tenth 30 px
+    off: ``ransac_kernel.support``'s tensor arguments, float32 on ``dev``
+    (the masks bool)."""
+    feats, is_xyz, active, cam7 = _measure_scene(rng, F)
+    x = np.zeros(N)
+    x[:7] = cam7
+    x[13:13 + 6 * F] = feats.reshape(-1)
+    uv, _, _, vis = measure_kernel.measure_plain(
+        camera, torch.tensor(cam7), torch.tensor(feats),
+        torch.tensor(is_xyz), torch.tensor(active))
+    A = rng.standard_normal((F, 2, 2))
+    z = uv.numpy() + rng.normal(0, 0.7, (F, 2))
+    z[rng.random(F) < 0.1] += 30.0
+    matched = vis.numpy() & (rng.random(F) < 0.9)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.tensor(x, **f32),
+            torch.tensor(rng.normal(0, 0.01, (2 * F, N)), **f32),
+            torch.tensor(A @ A.transpose(0, 2, 1) + np.eye(2), **f32),
+            torch.tensor(z, **f32), uv.to(**f32),
+            *(torch.tensor(m, device=dev) for m in (matched, active,
+                                                    is_xyz)))
+
+
+def ransac_gaps(camera, args, pe: float, thr: float, deadband: bool,
+                got=None) -> dict:
+    """The kernel's RANSAC decisions (``got``: its (support, good), else a
+    launch on ``args``) against the plain float32 chain's on the same
+    inputs: the (hypothesis, slot) decisions that differ outside the knife
+    edges (ransac_kernel.knife_edges), the supports that differ by more
+    than their row's edges, and the edges."""
+    sup, good = got or ransac_kernel.support(camera, *args, pe, thr,
+                                             deadband)
+    sup_p, good_p = ransac_kernel.support_plain(camera, *args, pe, thr,
+                                                deadband)
+    edge = ransac_kernel.knife_edges(camera, *args, pe, thr, deadband)
+    return dict(
+        wrong=int((good != good_p)[~edge].sum()),
+        support_off=int(((sup - sup_p).abs() > edge.sum(1)).sum()),
+        edges=int(edge.sum()), decisions=good.numel(),
+        max_support=int(sup_p.max()))
+
+
+def ransac_decisions(failures, tag: str, run) -> dict:
+    """RANSAC's decisions on every frame ``run()`` steps: each launch's
+    inputs and outputs kept, then held against the plain float32 chain
+    (ransac_gaps) on the card: no decision may differ outside the knife
+    edges."""
+    calls = []
+    launch = ransac_kernel.support
+
+    def kept(camera, *args):
+        out = launch(camera, *args)
+        calls.append((camera, [a.clone() for a in args[:8]], args[8:],
+                      [o.clone() for o in out]))
+        return out
+
+    ransac_kernel.support = kept
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ransac_kernel.support = launch
+    gaps = [ransac_gaps(camera, args, *rest, got=out)
+            for camera, args, rest, out in calls]
+    total = {k: sum(g[k] for g in gaps)
+             for k in ("wrong", "support_off", "edges", "decisions")}
+    check(failures, bool(gaps) and total["wrong"] == 0
+          and total["support_off"] == 0,
+          f"{tag}: RANSAC's decisions on {len(gaps)} frames equal the plain "
+          f"float32 chain's outside {total.get('edges')} knife edges "
+          f"({total.get('decisions')} decisions; {total.get('wrong')} "
+          f"differ, {total.get('support_off')} supports off)")
+    return dict(frames=len(gaps), **total)
+
+
 def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
     """The update kernel against its float64 plain version, and the factor
     it used against the float64 masked S (L L^T); returns the errors."""
@@ -1011,8 +1094,38 @@ def phase_kernels(cfg: SlamConfig, camera, frontend,
                                                    is_xyz, active,
                                                    quirks=True))
 
-    # ---- update
+    # ---- RANSAC's support count on a frame of the s3 map (its own
+    # generators, so the inputs of the checks after it stay as they were),
+    # its deadband variant (the parity mode's) on the same frame, and a
+    # frame of the large map (F = 168, N = 1024)
     pe = cfg.camera.pixel_error_x
+    thr = cfg.ekf.ransac_threshold_predict_distance
+    r_s3 = ransac_frame(np.random.default_rng(18), F, N, camera, dev)
+    r_large = ransac_frame(np.random.default_rng(168), LARGE_F, LARGE_N,
+                           camera, dev)
+    for name, deadband, r_args in (
+            ("ransac_support", False, r_s3),
+            ("ransac_support_deadband", True, r_s3),
+            ("ransac_support_f168", False, r_large)):
+        Fr, Nr = r_args[5].shape[0], r_args[0].shape[0]
+        gaps = ransac_gaps(camera, r_args, pe, thr, deadband)
+        check(failures, gaps["wrong"] == gaps["support_off"] == 0
+              and gaps["max_support"] >= 3,
+              f"{name}: decisions equal the plain float32 chain's outside "
+              f"{gaps['edges']} knife edges ({gaps})")
+        # the operations: about 400 a (hypothesis, slot), h(x)'s 11 Newton
+        # steps most of them
+        rows[name] = dict(
+            max_abs_err=float(gaps["wrong"]), checks=gaps, F=Fr, N=Nr,
+            bytes=4 * ((2 * Fr + 1) * (7 + 6 * Fr) + 8 * Fr) + 3 * Fr
+            + Fr * Fr + 4 * Fr,
+            flops=400 * Fr * Fr,
+            kernel=lambda d=deadband, a=r_args: ransac_kernel.support(
+                camera, *a, pe, thr, d),
+            plain=lambda d=deadband, a=r_args: ransac_kernel.support_plain(
+                camera, *a, pe, thr, d))
+
+    # ---- update
     prob = _update_problem(rng, N, F, 0.6)
     P, x, HP, Sfull, uv, z = (torch.tensor(a, **f32) for a in prob[:6])
     use = torch.tensor(prob[6], device=dev)
@@ -1237,6 +1350,15 @@ def batched_kernel_cases(cfg: SlamConfig, camera, frontend, dev) -> dict:
                 camera, cam7[b], feats[b], is_xyz[b], active[b], q))
 
     pe = cfg.camera.pixel_error_x
+    thr = cfg.ekf.ransac_threshold_predict_distance
+    frames = [ransac_frame(np.random.default_rng(18 + b), F, N, camera, dev)
+              for b in range(BATCH)]
+    frames[0][5].zero_()                            # stream 0 matches none
+    R = [torch.stack(parts) for parts in zip(*frames)]
+    cases["ransac_support"] = (
+        lambda: ransac_kernel.support_cuda(camera, *R, pe, thr),
+        lambda b: ransac_kernel.support_cuda(camera, *(r[b] for r in R),
+                                             pe, thr))
     probs = [_update_problem(rng, N, F, frac)
              for frac in np.linspace(0.0, 0.9, BATCH)]
     U = [stack([p[k] for p in probs], **f32) for k in range(6)]
@@ -1683,6 +1805,8 @@ def phase_path(cfg: SlamConfig, failures: list) -> dict:
 
     T = T_FRAMES
     check(failures, launches["predict"] == T, f"predict launches {T}")
+    check(failures, launches["ransac_support"] == T,
+          f"ransac_support launches {T} (one a RANSAC phase)")
     check(failures, launches["measure"] == 2 * T, f"measure launches {2 * T}")
     check(failures, launches["measure_quirks"] == 0,
           "no launch of the measure kernel's quirks variant")
@@ -1884,6 +2008,8 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
           and launches["brief_generic"] == 0,
           "no launch of STAR's direct route or BRIEF's generic variant")
     check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["ransac_support"] == S,
+          f"ransac_support launches {S} (one a RANSAC phase)")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
     check(failures, launches["measure_quirks"] == 0,
           "no launch of the measure kernel's quirks variant")
@@ -1944,6 +2070,9 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
     # STAR and BRIEF on frame T/2's own image
     mid = check_star_brief(failures, f"frame {T // 2}", gpu_frames[T // 2],
                            runtime.frontend)
+    decisions = ransac_decisions(
+        failures, "live path",
+        lambda: scan_runner.scan_frames(runtime, st0, gpu_frames[1:]))
 
     # the live injection log, replayed on the CPU in float64
     log = replay.record_live_log(runtime, gpu_frames)
@@ -1984,6 +2113,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                 mid_frame=dict(star_err=mid["star_err"],
                                brief_bits=mid["brief_bits"],
                                peaks=mid["peaks"]),
+                ransac_decisions=decisions,
                 replay=dict(cpu_s=cpu_s, log_run_vs_main=same_rec, **agree))
 
 
@@ -2075,6 +2205,8 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
     check(failures, launches["update"] == 0,
           f"fused update launches {launches['update']} == 0")
     check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["ransac_support"] == S,
+          f"ransac_support launches {S} (one a RANSAC phase)")
     check(failures, launches["measure"] == 2 * S, f"measure launches {2 * S}")
     check(failures, launches["measure_quirks"] == 0,
           "no launch of the measure kernel's quirks variant")
@@ -2097,6 +2229,10 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
           f"matched {matched.mean():.1f} (>= 20), mean inliers "
           f"{inl.mean():.1f}, mean active {active.mean():.1f}, max active "
           f"{active.max()}")
+
+    decisions = ransac_decisions(
+        failures, "large map", lambda: run_sequence(SlamEngine(str(path)),
+                                                    frames))
 
     # host syncs a frame, by site: only the two named lines may sync
     allowed = {source_line(engine_mod, "packed.cpu()"),
@@ -2217,7 +2353,7 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
                 mean_active=float(active.mean()),
-                max_active=int(active.max()),
+                max_active=int(active.max()), ransac_decisions=decisions,
                 profiled_vs_main=same_run,
                 resume=dict(identical=identical, max_diff=resume_diff),
                 replay=dict(cpu_s=cpu_s, log_run_vs_main=log_vs_main,
@@ -2259,6 +2395,8 @@ def check_parity_launches(failures, launches: dict, steps: int,
     check(failures, launches["update"] == 0,
           f"fused update launches {launches['update']} == 0")
     check(failures, launches["predict"] == S, f"predict launches {S}")
+    check(failures, launches["ransac_support"] == S,
+          f"ransac_support launches {S} (one a RANSAC phase)")
     check(failures, launches["init"] >= 1,
           f"init launched on add frames ({launches['init']})")
     check(failures, launches["init_augment"] == launches["init"],
@@ -2653,8 +2791,10 @@ def run_profile(failures, det: str, desc: str, frames: np.ndarray,
           f"{tag}: no STAR launch")
     check(failures, launches["predict"] == S
           and launches["measure"] == 2 * S and launches["update"] == 2 * S
+          and launches["ransac_support"] == S
           and launches["measure_quirks"] == launches["sinv"] == 0,
-          f"{tag}: predict {S}, measure {2 * S}, fused update {2 * S}")
+          f"{tag}: predict {S}, measure {2 * S}, fused update {2 * S}, "
+          f"ransac_support {S}")
     check(failures, 1 <= launches["init"] == launches["init_augment"] <= T,
           f"{tag}: each addition launches (A) and (B) once "
           f"({launches['init']})")
@@ -2838,8 +2978,10 @@ def phase_ncc(failures: list, T: int = T_NCC) -> dict:
           f"{elapsed:.4f} s = {fps:.2f} frames/s; launches {launches}",
           flush=True)
     check(failures, launches["predict"] == S and launches["measure"] == 2 * S
-          and launches["update"] == 2 * S,
-          f"predict {S}, measure {2 * S}, fused update {2 * S}")
+          and launches["update"] == 2 * S
+          and launches["ransac_support"] == S,
+          f"predict {S}, measure {2 * S}, fused update {2 * S}, "
+          f"ransac_support {S}")
     check(failures, launches["brief"] == launches["star"] == 0
           and launches["brief_generic"] == launches["star_direct"] == 0,
           "no STAR or BRIEF launch (FAST detector, PATCH descriptors)")
@@ -3007,8 +3149,10 @@ def phase_loop(live_cfg: SlamConfig, failures: list) -> dict:
                  for c in closures]), flush=True)
     print(f"  launches {launches}", flush=True)
     check(failures, launches["predict"] == S and launches["measure"] == 2 * S
-          and launches["update"] == 2 * S,
-          f"predict {S}, measure {2 * S}, fused update {2 * S}")
+          and launches["update"] == 2 * S
+          and launches["ransac_support"] == S,
+          f"predict {S}, measure {2 * S}, fused update {2 * S}, "
+          f"ransac_support {S}")
     # STAR and BRIEF: a frame each, once more for each bootstrap and for
     # each keyframe that looks for a closure (LoopCloser._signature)
     check(failures, launches["star"] == launches["brief"] >= T,
@@ -3270,7 +3414,8 @@ SWEEP_WARM, SWEEP_TIMED = 5, 21
 BATCH_PROFILED = 10           # batched frames under the profiler
 BATCH_REPLAYED = (0, BATCH - 1)   # streams whose live logs replay in f64
 # each kernel's launches a frame on the s3 live path, at any B
-PER_FRAME = {"predict": 1, "measure": 2, "update": 2, "star": 1, "brief": 1}
+PER_FRAME = {"predict": 1, "measure": 2, "update": 2, "star": 1, "brief": 1,
+             "ransac_support": 1}
 
 
 def batch_frames(B: int, T: int, hw=LIVE_HW) -> np.ndarray:
@@ -3550,7 +3695,7 @@ BATCH_NEW_PROFILED = 2        # batched frames of the S-inverse's profile
 # batched frame of B streams (init (A) and (B) run when any stream adds)
 BATCH_PER_FRAME_KERNELS = ("predict", "measure", "measure_quirks", "update",
                            "sinv", "star", "star_direct", "brief",
-                           "brief_generic", "cholsolve")
+                           "brief_generic", "cholsolve", "ransac_support")
 
 
 def large_map_config() -> SlamConfig:
@@ -3931,6 +4076,7 @@ SHARD_RUNS = (("p1_nccl", "nccl", (1,), ("p",), T_SHARD_SHORT),
 # each kernel's launches a sharded step (init (A) also on adding frames);
 # predict, the fused update and (B) take whole P: their tile forms run
 SHARD_PER_STEP = {"measure": 2, "sinv": 2, "star": 1, "brief": 1,
+                  "ransac_support": 1,
                   "predict": 0, "update": 0, "init_augment": 0,
                   "measure_quirks": 0, "star_direct": 0, "brief_generic": 0,
                   "cholsolve": 0}

@@ -89,6 +89,8 @@ _SIGNATURES = {
     "ekf_brief_generic": [_P, _I, _I, _I, _P, _I, _P, _P],
     "ekf_sinv": [_P] * 11 + [_I, _P],
     "ekf_cholsolve": [_P] * 8 + [_I, _I, _P],
+    "ekf_ransac_support": [_P] * 10 + [_I, _I, _F, _F, _I,
+                                       ctypes.POINTER(CamParams), _P],
     "ekf_noop": [_P],
     # the same kernels over B streams stacked (the int after the sizes is
     # B; the int64 of ekf_update_batched and ekf_sinv_batched is the scratch's
@@ -106,6 +108,9 @@ _SIGNATURES = {
     "ekf_brief_batched": [_P, _I, _I, _I, _P, _P],
     "ekf_brief_generic_batched": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "ekf_sinv_batched": [_P] * 11 + [_I, _I, ctypes.c_longlong, _P],
+    "ekf_ransac_support_batched": [_P] * 10 + [_I, _I, _I, _F, _F, _I,
+                                               ctypes.POINTER(CamParams),
+                                               _P],
 }
 
 

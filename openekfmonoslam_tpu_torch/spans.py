@@ -25,7 +25,8 @@ The names (README.md lists them with what reads each):
       step.<phase> x 7             SlamRuntime.step's phases
         match.precompute, match.gate, match.detect, match.describe,
         match.nn, match.subpixel   (match.ncc on the NCC route)
-        ransac.hypotheses, ransac.support, ransac.pick
+        ransac.hypotheses (the CPU's plain chain only), ransac.support
+        (on the card the one RANSAC launch), ransac.pick
         mapman.maintain, mapman.convert, read.add, mapman.detect,
         mapman.add
       read.summary                 the record's one packed copy

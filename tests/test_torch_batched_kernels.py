@@ -3,7 +3,8 @@ stream index in the grid) against B single launches, bit for bit, at
 shapes the main path does not reach: odd F and C (per-stream outputs off
 16-byte boundaries), predict's scalar fallback (N % 4 != 0), an update
 with one stream using no slot, an addition with no valid candidate in one
-stream and a duplicate slot in another, STAR by both routes and BRIEF by
+stream and a duplicate slot in another, RANSAC's support count at odd F
+with one stream matching no slot, STAR by both routes and BRIEF by
 both variants on an odd frame size, the S-inverse at M = 1, 7, 192 and 336
 with one stream's S all identity rows (every row masked); and the wrappers
 under
@@ -26,8 +27,11 @@ from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, init_kernel,
                                            measure_kernel, predict_kernel,
-                                           sinv, star_kernel, update_kernel)
+                                           ransac_kernel, sinv, star_kernel,
+                                           update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
+
+from test_torch_cuda_kernels import ransac_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -163,6 +167,30 @@ def test_sinv(dev, M):
     got = vmap(sinv.newton_schulz_inverse)(S)
     assert sinv.LAUNCHES.count == before + 1
     assert torch.equal(got, X)
+
+
+def _ransac_batch(dev, F, N):
+    """B streams' RANSAC frames stacked; stream 0 matches no slot."""
+    frames = [ransac_inputs(np.random.default_rng(F + b), F, N, dev,
+                            matched_frac=0.0 if b == 0 else 0.9)
+              for b in range(B)]
+    return [torch.stack(parts) for parts in zip(*frames)]
+
+
+@pytest.mark.parametrize("F,N", [(37, 256), (96, 640)])
+@pytest.mark.parametrize("deadband", [False, True])
+def test_ransac_support(dev, F, N, deadband):
+    args = _ransac_batch(dev, F, N)
+    sup, good = ransac_kernel.support_cuda(CAM, *args, 1.0, 1.0, deadband)
+    assert not sup[0].any() and not good[0].any()
+    _same((sup, good), lambda b: ransac_kernel.support_cuda(
+        CAM, *(a[b] for a in args), 1.0, 1.0, deadband))
+    # under torch.func.vmap, through the custom op: one launch
+    before = ransac_kernel.LAUNCHES.count
+    got = vmap(lambda *a: ransac_kernel.support(CAM, *a, 1.0, 1.0,
+                                                deadband))(*args)
+    assert ransac_kernel.LAUNCHES.count == before + 1
+    assert torch.equal(got[0], sup) and torch.equal(got[1], good)
 
 
 def _frames(dev, h=483, w=645):

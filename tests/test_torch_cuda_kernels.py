@@ -5,7 +5,9 @@ predict kernel's scalar fallback (N % 4 != 0, an unaligned base), odd
 frame sizes and other STAR and BRIEF settings (both STAR routes, both
 BRIEF variants), the S-inverse from M = 1 to
 3100 and cond 1e2 to 1e6, both measure variants at F = 1 to 513 with
-their masks, the blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
+their masks, RANSAC's support count at F = 37, 96 and 168 (XYZ and
+inverse-depth slots, no slot matched, with and without the deadband), the
+blocked Cholesky solve from M = 1 to 640 and K = 1 to 1024
 at cond 1e2 to 1e4 (and its pivot clamp against the plain version), the
 init chain and the add path's covariance augmentation at N = 128 to 1024
 and C = 1 to 96 with invalid, shuffled and duplicate slots, and the
@@ -28,8 +30,9 @@ from openekfmonoslam_tpu_torch.config import SlamConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cholsolve,
                                            init_kernel, measure_kernel,
-                                           predict_kernel, sinv, spd_core,
-                                           star_kernel, update_kernel)
+                                           predict_kernel, ransac_kernel,
+                                           sinv, spd_core, star_kernel,
+                                           update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief, star
 
 pytestmark = pytest.mark.cuda
@@ -147,6 +150,61 @@ def test_measure_kernel_quirks_variant(dev, F):
     if int(m.sum()) > 1:        # the variant differs from the correct math
         assert not torch.allclose(ref[1][m], correct[1][m], rtol=0,
                                   atol=1e-9)
+
+
+def ransac_inputs(rng, F, N, dev, matched_frac=0.9):
+    """A RANSAC frame: x (N) with a camera and F slots (30% XYZ), the
+    prediction's uv, an H P of the scale a frame's has and an SPD S per
+    slot, matches 0.7 px off with a tenth 30 px off; float32 on ``dev``
+    (the masks bool), in support_cuda's argument order after the camera."""
+    cam7, feats, is_xyz, active = (t.cpu() for t in _measure_inputs(
+        rng, F, "cpu"))
+    x = torch.zeros(N, dtype=torch.float32)
+    x[:7] = cam7
+    x[13:13 + 6 * F] = feats.reshape(-1)
+    uv, _, _, vis = measure_kernel.measure_plain(
+        CAM, cam7.double(), feats.double(), is_xyz, active)
+    HP = torch.tensor(rng.normal(0, 0.01, (2 * F, N)), dtype=torch.float32)
+    A = rng.standard_normal((F, 2, 2))
+    S = torch.tensor(A @ A.transpose(0, 2, 1) + np.eye(2),
+                     dtype=torch.float32)
+    z = uv.numpy() + rng.normal(0, 0.7, (F, 2))
+    z[rng.random(F) < 0.1] += 30.0
+    matched = vis & torch.tensor(rng.random(F) < matched_frac)
+    return tuple(t.to(dev) for t in (
+        x, HP, S, torch.tensor(z, dtype=torch.float32), uv.float(),
+        matched, active, is_xyz))
+
+
+@pytest.mark.parametrize("F,N,pixel_error", [(37, 256, 2.0), (96, 640, 1.0),
+                                             (168, 1024, 1.0)])
+@pytest.mark.parametrize("deadband", [False, True])
+def test_ransac_support_kernel(dev, F, N, pixel_error, deadband):
+    """The kernel against the float32 plain chain on the card: good equal
+    outside the knife edges, each support equal up to its row's edges;
+    one launch."""
+    args = ransac_inputs(np.random.default_rng(F + 7 * deadband), F, N, dev)
+    thr = CFG.ekf.ransac_threshold_predict_distance
+    ransac_kernel.LAUNCHES.reset()
+    sup, good = ransac_kernel.support(CAM, *args, pixel_error, thr,
+                                      deadband)
+    assert ransac_kernel.LAUNCHES.count == 1
+    assert sup.dtype == torch.int32 and good.dtype == torch.bool
+    sup_p, good_p = ransac_kernel.support_plain(CAM, *args, pixel_error,
+                                                thr, deadband)
+    edge = ransac_kernel.knife_edges(CAM, *args, pixel_error, thr, deadband)
+    assert int(sup_p.max()) >= 3
+    assert torch.equal(good[~edge], good_p[~edge])
+    assert bool(((sup - sup_p).abs() <= edge.sum(1)).all())
+    assert torch.equal(sup, good.sum(1, dtype=torch.int32))
+
+
+def test_ransac_support_kernel_without_a_match(dev):
+    args = ransac_inputs(np.random.default_rng(3), 96, 640, dev,
+                         matched_frac=0.0)
+    for deadband in (False, True):
+        sup, good = ransac_kernel.support(CAM, *args, 1.0, 1.0, deadband)
+        assert not sup.any() and not good.any()
 
 
 def spd_plus(rng, m, scale=10.0):
@@ -512,6 +570,10 @@ def test_wrappers_refuse_float64_cuda_tensors(dev):
         predict_kernel.predict(P, x, 1.0, 1e-6, 1e-6)
     with pytest.raises(ValueError, match="float32"):
         sinv.sinv_cuda(P)
+    args = ransac_inputs(np.random.default_rng(0), 8, 64, dev)
+    with pytest.raises(ValueError, match="float32"):
+        ransac_kernel.support(CAM, *(a.double() if a.is_floating_point()
+                                     else a for a in args), 1.0, 1.0)
 
 
 def _gray(rng, h, w, dev):

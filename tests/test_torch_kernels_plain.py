@@ -28,6 +28,7 @@ from openekfmonoslam_tpu.core.camera import Camera as JCamera
 from openekfmonoslam_tpu.filter import features as jfeat
 from openekfmonoslam_tpu.filter import measure_fast as jmf
 from openekfmonoslam_tpu.filter import predict as jpred
+from openekfmonoslam_tpu.filter import ransac as jransac
 from openekfmonoslam_tpu.filter import update as jupd
 from openekfmonoslam_tpu.filter.measure import Prediction as JPrediction
 from openekfmonoslam_tpu.filter.state import SlamState as JState
@@ -35,16 +36,20 @@ from openekfmonoslam_tpu_torch.config import CameraCalibration as TCal
 from openekfmonoslam_tpu_torch.config import SlamConfig as TConfig
 from openekfmonoslam_tpu_torch.core.camera import Camera as TCamera
 from openekfmonoslam_tpu_torch.engine import step as tstep
+from openekfmonoslam_tpu_torch.filter import measure as tmeas
+from openekfmonoslam_tpu_torch.filter import ransac as transac
+from openekfmonoslam_tpu_torch.filter.state import SlamState as TState
 from openekfmonoslam_tpu_torch.ops import (brief_kernel, cuda_lib,
                                            init_kernel, measure_kernel,
-                                           predict_kernel, sinv, spd_core,
-                                           star_kernel, update_kernel)
+                                           predict_kernel, ransac_kernel,
+                                           sinv, spd_core, star_kernel,
+                                           update_kernel)
 from openekfmonoslam_tpu_torch.vision import brief as tbrief
 from openekfmonoslam_tpu_torch.vision import star as tstar
 
 N, F = 128, 16
 KERNELS = (predict_kernel, measure_kernel, update_kernel, init_kernel,
-           star_kernel, brief_kernel)
+           star_kernel, brief_kernel, ransac_kernel)
 DTYPES = {"float64": (jnp.float64, torch.float64),
           "float32": (jnp.float32, torch.float32)}
 
@@ -273,12 +278,95 @@ def test_sinv_plain_inverses(cond):
                                rtol=0, atol=1e-9 * scale)
 
 
+def _ransac_problem(rng):
+    """A RANSAC frame on the s3 camera: the state with _measure_scene's
+    slots in x, the prediction's uv (visible slots), a small H P and an
+    SPD S per slot, matches 0.7 px off with two outliers 30 px off."""
+    P, x = _state_arrays(rng)
+    feats, is_xyz, active, cam7 = _measure_scene(rng)
+    x[:7] = cam7
+    x[13:13 + 6 * F] = feats.reshape(-1)
+    cam = TCamera.from_calibration(TCal())
+    uv, _, _, vis = measure_kernel.measure_plain(
+        cam, torch.tensor(cam7), torch.tensor(feats), torch.tensor(is_xyz),
+        torch.tensor(active))
+    uv, vis = _np(uv), _np(vis)
+    HP = rng.standard_normal((2 * F, N)) * 2e-3
+    A = rng.standard_normal((F, 2, 2))
+    S = A @ A.transpose(0, 2, 1) + np.eye(2)
+    z = uv + rng.normal(scale=0.7, size=(F, 2))
+    z[[1, 4]] += 30.0
+    matched = vis & (rng.random(F) < 0.9)
+    return dict(x=x, HP=HP, S=S, z=z, uv=uv, matched=matched,
+                active=active, is_xyz=is_xyz)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("deadband", [False, True])
+def test_support_plain_is_the_two_step_chain(dtype, deadband):
+    """``support_plain`` is filter/ransac.py's two steps composed, bit for
+    bit, and the JAX package's: masks and support equal (in float32
+    outside the slots whose float64 distance lies within 1e-3 px of the
+    threshold)."""
+    jd, td = DTYPES[dtype]
+    pr = _ransac_problem(np.random.default_rng(7))
+    cam = TCamera.from_calibration(TCal())
+    t = {k: torch.tensor(v, dtype=td if v.dtype.kind == "f" else None)
+         for k, v in pr.items()}
+    thr, pe = 1.0, 1.0
+    got = ransac_kernel.support_plain(
+        cam, t["x"], t["HP"], t["S"], t["z"], t["uv"], t["matched"],
+        t["active"], t["is_xyz"], pe, thr, deadband)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert int(got[0].max()) >= 3
+    state = TState(x=t["x"], P=None, active=t["active"],
+                   is_xyz=t["is_xyz"], times_predicted=None,
+                   times_matched=None, descriptors=None, patch_pose=None,
+                   birth=None, rng=None, frame=None)
+    pred = tmeas.Prediction(uv=t["uv"], visible=t["matched"], Hc=None,
+                            Hf=None, S=t["S"], HP=t["HP"], Sfull=None)
+    states_x = transac._batched_state_only_updates(
+        state, pred, t["z"], t["matched"], pe, deadband=deadband)
+    want = transac._support_counts(states_x, state, cam, t["z"],
+                                   t["matched"], thr)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    js = _jax_state(np.eye(N), pr["x"], jd)._replace(
+        active=jnp.asarray(pr["active"]), is_xyz=jnp.asarray(pr["is_xyz"]))
+    jp = JPrediction(uv=jnp.asarray(pr["uv"], jd), visible=None, Hc=None,
+                     Hf=None, S=jnp.asarray(pr["S"], jd),
+                     HP=jnp.asarray(pr["HP"], jd), Sfull=None)
+    jc = JCamera.from_calibration(JCal(), jd)
+    jx = jransac._batched_state_only_updates(
+        js, jp, jnp.asarray(pr["z"], jd), pr["matched"], pe,
+        deadband=deadband)
+    j_sup, j_good = jransac._support_counts(jx, js, jc,
+                                            jnp.asarray(pr["z"], jd),
+                                            pr["matched"], thr)
+    good = _np(got[1])
+    if dtype == "float32":
+        x64 = ransac_kernel.hypotheses_plain(
+            *(torch.tensor(pr[k]) for k in ("x", "HP", "S", "z", "uv")),
+            torch.tensor(pr["matched"]), pe, deadband)
+        uv64 = tmeas.measure_one(cam, x64[:, None, :7],
+                                 x64[:, 13:13 + 6 * F].reshape(-1, F, 6),
+                                 torch.tensor(pr["is_xyz"])[None])
+        dist = np.linalg.norm(pr["z"][None] - _np(uv64), axis=-1)
+        edge = np.abs(dist - thr) < 1e-3
+    else:
+        edge = np.zeros_like(good)
+    np.testing.assert_array_equal(good[~edge], np.asarray(j_good)[~edge])
+    if not edge.any():
+        np.testing.assert_array_equal(_np(got[0]), np.asarray(j_sup))
+
+
 # ------------------------------------------------------------- wrappers
 
 def _wrapper_inputs():
     rng = np.random.default_rng(5)
     P, x, HP, Sfull, uv, z, use = _update_problem(rng, 0.5)
     feats, is_xyz, active, cam7 = _measure_scene(rng)
+    r = _ransac_problem(rng)
     cam = TCamera.from_calibration(TCal())
     t = torch.tensor
     gray = torch.tensor(rng.integers(0, 256, (45, 61)), dtype=torch.uint8)
@@ -299,6 +387,10 @@ def _wrapper_inputs():
                          1.0)),
         init_kernel: (init_kernel.init_chain,
                       (cam, t(cam7), t(uv[:5]), 1.0)),
+        ransac_kernel: (ransac_kernel.support,
+                        (cam, *(t(r[k]) for k in ("x", "HP", "S", "z", "uv",
+                                                  "matched", "active",
+                                                  "is_xyz")), 1.0, 1.0)),
     }
 
 
@@ -311,7 +403,8 @@ def test_cpu_tensor_takes_plain_path_without_a_launch(module):
              update_kernel: update_kernel.update_plain,
              init_kernel: init_kernel.init_plain,
              star_kernel: star_kernel.star_plain,
-             brief_kernel: brief_kernel.dense_planes_plain}[module]
+             brief_kernel: brief_kernel.dense_planes_plain,
+             ransac_kernel: ransac_kernel.support_plain}[module]
     for got, want in zip(fn(*args), plain(*args)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert module.LAUNCHES.count == 0
@@ -325,7 +418,8 @@ def test_cuda_launch_refuses_cpu_tensors(module):
               update_kernel: update_kernel.joint_update_cuda,
               init_kernel: init_kernel.init_cuda,
               star_kernel: star_kernel.star_cuda,
-              brief_kernel: brief_kernel.dense_planes_cuda}[module]
+              brief_kernel: brief_kernel.dense_planes_cuda,
+              ransac_kernel: ransac_kernel.support_cuda}[module]
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         launch(*args)
     assert module.LAUNCHES.count == 0

@@ -52,9 +52,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
               BRIEF-256, descriptor matching with subpixel refinement):
               run_sequence_on_device (init_step, then step per frame) with
               every launch counter set to 0 just before and read just
-              after, which gives frames/s; then a run under sync debug
+              after, which gives frames/s, the step's prefix replayed as
+              its CUDA graph (captured once; every phase of an engine or
+              runtime that steps live checks the same), the graph's
+              capture seconds, and its nodes, device µs and idle µs a
+              node over back-to-back replays; then a run under sync debug
               mode (host syncs per frame, at most 1), one under
-              torch.profiler (host and device ms per step.<phase>), STAR
+              torch.profiler (host and device ms per step span), STAR
               and BRIEF against their plain versions on frame T/2's own
               image, and the live injection log (eval/replay.py
               record_live_log) replayed through step_injected on the CPU
@@ -256,6 +260,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
+from openekfmonoslam_tpu_torch import spans
 from openekfmonoslam_tpu_torch.config import (DescriptorConfig,
                                               DetectorConfig, SlamConfig,
                                               auto_max_features, load_config)
@@ -849,7 +854,8 @@ def ransac_decisions(failures, tag: str, run) -> dict:
     """RANSAC's decisions on every frame ``run()`` steps: each launch's
     inputs and outputs kept, then held against the plain float32 chain
     (ransac_gaps) on the card: no decision may differ outside the knife
-    edges."""
+    edges.  The steps run eagerly (spans.collect), since a replayed CUDA
+    graph calls no Python wrapper."""
     calls = []
     launch = ransac_kernel.support
 
@@ -861,7 +867,8 @@ def ransac_decisions(failures, tag: str, run) -> dict:
 
     ransac_kernel.support = kept
     try:
-        run()
+        with spans.collect():
+            run()
         torch.cuda.synchronize()
     finally:
         ransac_kernel.support = launch
@@ -876,6 +883,49 @@ def ransac_decisions(failures, tag: str, run) -> dict:
           f"({total.get('decisions')} decisions; {total.get('wrong')} "
           f"differ, {total.get('support_off')} supports off)")
     return dict(frames=len(gaps), **total)
+
+
+def check_graph(failures, tag: str, runtime) -> dict:
+    """The runtime's step replays its prefix's CUDA graph: each key
+    captured once, and the last step replayed (engine/step_graph.py)."""
+    graphs = runtime._graphs
+    captures = list(graphs.captures.values())
+    check(failures, bool(captures) and set(captures) == {1}
+          and runtime.replayed,
+          f"{tag}: the step's prefix captured once a key ({captures}) and "
+          f"replayed ({runtime.replayed})")
+    return dict(captures=len(captures),
+                capture_s=[round(v, 4) for v in graphs.capture_s.values()])
+
+
+def graph_nodes(runtime, reps: int = GRAPH_REPS) -> dict:
+    """The runtime's captured step graph replayed ``reps`` times back to
+    back on its static inputs: µs a replay by CUDA events (the device's
+    extent, launch to end), its device records (nodes) and their summed
+    µs under the profiler, and the idle µs a node between them."""
+    (graph,) = [g.graph for g in runtime._graphs._graphs.values()]
+    for _ in range(3):
+        graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    extent = t0.elapsed_time(t1) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    nodes = sum(e.count for e in device) / reps
+    busy = sum(e.device_time_total for e in device) / reps
+    return dict(extent_us=extent, nodes=nodes, busy_us=busy,
+                idle_us_per_node=(extent - busy) / max(nodes, 1))
 
 
 def check_update(failures, tag, P, x, HP, Sfull, uv, z, use, pe) -> dict:
@@ -2001,6 +2051,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
           f"and the records' copy back included); again: "
           f"{T / elapsed_again:.2f} frames/s", flush=True)
     print(f"  launches: {launches}", flush=True)
+    graph = check_graph(failures, "live path", runtime)
     check(failures, launches["star"] == T and launches["brief"] == T,
           f"star and brief launched once a frame plus once for init_step "
           f"({T})")
@@ -2060,6 +2111,9 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                                  LIVE_KERNEL_NAMES + UPDATE_KERNEL_NAMES)
     dev_ms = device_ms(averages, S)
     print_device(dev_ms, vision_us)
+    graph["nodes"] = graph_nodes(runtime)
+    print(f"  the step's CUDA graph: capture {graph['capture_s']} s; a "
+          f"replay {graph['nodes']}", flush=True)
     chains = chain_device(prof.events(), S)
     print("  PyTorch chains beside the front-end kernels, a frame: "
           + "; ".join(f"{k} {v['device_us']:.2f} device us in "
@@ -2105,7 +2159,7 @@ def phase_live(cfg: SlamConfig, failures: list, T: int = T_LIVE) -> dict:
                 syncs=syncs, syncs_per_frame=syncs / S,
                 sync_sites=dict(sites), fps_sync_debug=S / sync_s,
                 phase_ms=phase_ms, vision_kernels_us=vision_us,
-                frontend_chains=chains, device_ms=dev_ms,
+                frontend_chains=chains, device_ms=dev_ms, graph=graph,
                 healthy=healthy,
                 mean_matched=float(matched.mean()),
                 mean_inliers=float(inl.mean()),
@@ -2200,6 +2254,7 @@ def phase_large_map(failures: list, T: int = T_LIVE) -> dict:
           f"{fps:.2f} frames/s (init, the uploads and the per-frame "
           f"summaries included)", flush=True)
     print(f"  launches: {launches}", flush=True)
+    check_graph(failures, "large map", engine.runtime)
     check(failures, launches["sinv"] == 2 * S,
           f"S-inverse launches {launches['sinv']} == {2 * S} (2 a step)")
     check(failures, launches["update"] == 0,
@@ -2576,6 +2631,7 @@ def parity_engine(failures: list, T: int = T_PARITY_LIVE) -> dict:
     print(f"  engine: run_sequence over {T} frames in {elapsed:.4f} s = "
           f"{fps:.2f} frames/s", flush=True)
     print(f"  launches: {launches}", flush=True)
+    check_graph(failures, "parity engine", engine.runtime)
     check_parity_launches(failures, launches, S, frames=T)
     matched = np.array([r["total_matches"] for r in records])
     inl = np.array([r["li_inliers"] + r["hi_inliers"] for r in records])
@@ -2782,6 +2838,7 @@ def run_profile(failures, det: str, desc: str, frames: np.ndarray,
                frames=T)
     print(f"  {tag}: run_sequence_on_device {T / elapsed:.2f} frames/s "
           f"({elapsed:.4f} s); launches {launches}", flush=True)
+    check_graph(failures, tag, runtime)
     brief_n = T if desc == "BRIEF" else 0
     check(failures, launches["brief"] == brief_n
           and launches["brief_generic"] == 0,
@@ -2977,6 +3034,7 @@ def phase_ncc(failures: list, T: int = T_NCC) -> dict:
     print(f"  main path: run_sequence_on_device over {T} frames in "
           f"{elapsed:.4f} s = {fps:.2f} frames/s; launches {launches}",
           flush=True)
+    check_graph(failures, "ncc", runtime)
     check(failures, launches["predict"] == S and launches["measure"] == 2 * S
           and launches["update"] == 2 * S
           and launches["ransac_support"] == S,
@@ -3142,6 +3200,7 @@ def phase_loop(live_cfg: SlamConfig, failures: list) -> dict:
     launches = read_launches()
     fps = T / elapsed
     closures = engine.loop_closer.closures
+    check_graph(failures, "loop closure", engine.runtime)
     print(f"  run_sequence over {T} frames in {elapsed:.4f} s = {fps:.2f} "
           f"frames/s; {engine.relocalizations} relocalizations, keyframes at "
           f"{engine.keyframe_frames}; closures (i, j, matches, rms px): "
@@ -3349,6 +3408,7 @@ def phase_serve(failures: list) -> dict:
             + [r["total_matches"], r["n_active"]]
             for r in (engine.step(f) for f in frames[1:])]
     local_s = time.perf_counter() - t0
+    check_graph(failures, "the in-process engine", engine.runtime)
     want = np.asarray(want)
     same = served.shape == want.shape and served.tobytes() == want.tobytes()
     gap = (float(np.abs(served - want).max())
@@ -3957,6 +4017,7 @@ def phase_viz(cfg: SlamConfig, failures: list) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     engine.close()
+    check_graph(failures, "rendering engine", engine.runtime)
     plain, _ = engine_run(None)
     t0 = time.perf_counter()
     run_sequence(plain, frames)

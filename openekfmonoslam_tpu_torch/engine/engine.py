@@ -23,7 +23,8 @@ output.yml (state, 13x13 covariance corner, match/inlier counts, per-phase
 wall times; EKF.cpp:405-628), as JSONL plus an output.yml for the
 resultReader tooling (``eval/result_reader.py``).  ``step`` reads one
 packed summary back a frame, in one device-to-host copy; the step itself
-adds the one read of ``SlamRuntime.phase_mapman``.
+adds the one read of ``SlamRuntime.phase_mapman``, after the replay of its
+captured prefix on the card (engine/step_graph.py).
 
 ``keyframe_every > 0`` adds the keyframe pose graph (graph/pose_graph.py)
 with automatic loop closure (graph/loop_closure.py): a keyframe every
@@ -70,7 +71,8 @@ from openekfmonoslam_tpu_torch.spans import span
 # summary carries them
 DRAW_FIELDS = ("pred_uv", "pred_S", "visible", "z", "matched", "inliers",
                "new_uv", "new_ok")
-# the step's map counts a record gives while the recorder is on (spans.py)
+# the step's map counts a record gives while the recorder is on (spans.py),
+# beside "replayed": 1 where the step replayed its prefix's CUDA graph
 MAP_COUNTS = ("added", "removed", "converted")
 
 
@@ -247,6 +249,8 @@ class SlamEngine:
 
         with span("engine.record"):
             record = self._summary_to_dict(summary, wall_s)
+            if before is not None:
+                record["replayed"] = int(self.runtime.replayed)
             if timed is not None:
                 record["phase_times_us"] = dict(zip(
                     result_reader.PHASE_KEYS, spans.phase_times_us(timed)[0]))

@@ -10,7 +10,8 @@ launch on a CUDA tensor does.
 
 Each kernel module (``ops/*_kernel.py``) keeps a :class:`LaunchCounter`
 that its wrapper bumps once per kernel launch, so a run can show that its
-path went through the kernels.
+path went through the kernels.  ``COUNTERS`` lists them all: a replayed
+CUDA graph adds the hits its capture made (engine/step_graph.py).
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ class StarParams(ctypes.Structure):
            ("r_out", ctypes.c_float * STAR_MAX_SIZES)])
 
 
+# every LaunchCounter made, in the order made
+COUNTERS: list["LaunchCounter"] = []
+
 # C signatures of the exported launchers (csrc/*.cu); each returns a
 # cudaError_t, 0 on success.
 _SIGNATURES = {
@@ -120,6 +124,7 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        COUNTERS.append(self)
 
     def hit(self) -> None:
         self.count += 1

@@ -322,6 +322,10 @@ class ShardedRuntime(SlamRuntime):
     """``SlamRuntime`` whose states hold this rank's tile of P; every piece
     that touches P takes its tile form (the module docstring's list)."""
 
+    # the step runs eagerly: its prefix holds torch.distributed
+    # collectives, which a CUDA graph of the step's own stream does not
+    step_graphs = False
+
     def __init__(self, config, tiling: Tiling, device=None):
         super().__init__(config, device)
         if config.padded_state_dim != tiling.n:

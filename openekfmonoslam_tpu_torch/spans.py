@@ -17,12 +17,20 @@ gives ``SlamEngine``'s; -1 outside), and the stamps are
 at ``enable()``, the profiler's clock (Unix epoch nanoseconds).
 ``collect()`` hands one thread's spans to a list of its own while a block
 runs, the recorder on or not: the engine's and scan mode's phase timing.
+The step runs eagerly while its thread collects (``collecting()``), so
+that each of its seven phases gives a span.
 
 The names (README.md lists them with what reads each):
 
     engine.step                    one SlamEngine.step, its frame index
       engine.upload                the frame to the device
-      step.<phase> x 7             SlamRuntime.step's phases
+      step.replay                  on the card, SlamRuntime.step's captured
+                                   prefix (predict .. the conversion) as
+                                   one CUDA graph, with its copies in and
+                                   out (engine/step_graph.py); step.mapman
+                                   then holds read.add and the additions
+      step.<phase> x 7             SlamRuntime.step's phases, where it runs
+                                   them eagerly
         match.precompute, match.gate, match.detect, match.describe,
         match.nn, match.subpixel   (match.ncc on the NCC route)
         ransac.hypotheses (the CPU's plain chain only), ransac.support
@@ -213,6 +221,11 @@ def phase_times_us(entries) -> list[list[float]]:
             out.append([0.0] * len(PHASES))
         out[-1][k] = (e.t1_ns - e.t0_ns) / 1e3
     return out
+
+
+def collecting() -> bool:
+    """True inside ``collect()`` on this thread."""
+    return _thread.sink is not None
 
 
 @contextlib.contextmanager
